@@ -1,0 +1,114 @@
+"""Parameter-holding building blocks shared by the UNet and the encoder.
+
+Parameters stay float32 (as in the JAX package); each layer computes in
+the dtype of its input. Weight layouts are the reference's torch layouts,
+so the model's ``state_dict`` uses the reference's names and shapes. A
+weight in the compute dtype, or in the layout a GEMM or kernel wants, is
+derived once and cached until the parameter changes (``Derived``): no
+layer casts or re-lays out a weight on every call.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from said_tpu_torch.ops.norms import group_norm, layer_norm
+
+
+class Derived:
+    """A tensor derived from a parameter (re-laid out by ``fn``, then cast;
+    the default ``fn`` only casts), rebuilt only when the parameter is
+    replaced, moved or modified in place (its ``_version`` counter, which
+    ``load_state_dict`` bumps)."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor] = lambda p: p):
+        self.fn = fn
+        self._cache: Dict[torch.dtype, Tuple[tuple, torch.Tensor]] = {}
+
+    def __call__(self, param: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        key = (param._version, param.data_ptr(), param.device)
+        hit = self._cache.get(dtype)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, self.fn(param).to(dtype).contiguous())
+            self._cache[dtype] = hit
+        return hit[1]
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype (flax ``nn.Dense(dtype)``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._weight, self._bias = Derived(), Derived()
+
+    def weight_as(self, dtype: torch.dtype) -> torch.Tensor:
+        return self._weight(self.weight, dtype)
+
+    def bias_as(self, dtype: torch.dtype):
+        return None if self.bias is None else self._bias(self.bias, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight_as(x.dtype), self.bias_as(x.dtype))
+
+
+class Conv1dSame(nn.Module):
+    """Stride-1 SAME conv over channels-last (B, T, C), k ∈ {1, 3}.
+
+    Holds a torch ``Conv1d`` weight (out, in, k) + bias. k=1 is a plain
+    GEMM; k=3 (the JAX ``Conv3``, ``said_tpu/models/unet1d.py:115``) is
+    one GEMM over the three shifted copies of the zero-padded input,
+    concatenated on the channel axis, against the weight re-laid out to
+    (out, 3·in). Plain PyTorch: the JAX package computes these outside any
+    Pallas kernel too.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__()
+        if kernel_size not in (1, 3):
+            raise ValueError(f"kernel_size must be 1 or 3, got {kernel_size}")
+        self.kernel_size = kernel_size
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        # (out, in, k) -> (out, k·in): tap-major, matching the concat below
+        self._w = Derived(lambda w: w.permute(0, 2, 1).reshape(w.shape[0], -1))
+        self._b = Derived()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if self.kernel_size == 3:
+            xp = F.pad(x, (0, 0, 1, 1))
+            x = torch.cat([xp[:, :-2], xp[:, 1:-1], xp[:, 2:]], dim=-1)
+        return F.linear(x, self._w(self.weight, dt), self._b(self.bias, dt))
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with f32 statistics over (B, T, C), optional fused SiLU
+    (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, act: str = "none"):
+        super().__init__()
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act)
+
+
+class LayerNormF32(nn.Module):
+    """LayerNorm with f32 statistics over the last axis; runs through the
+    LayerNorm kernel router."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
