@@ -7,16 +7,24 @@ Phases (any failure exits non-zero; there is no try/except around them):
 1. Environment: torch/CUDA versions, the card's name and power limit;
    build the CUDA C++ kernels from ``said_tpu_torch/csrc`` and compile the
    Triton kernels, with their build times.
-2. Every kernel of the main path against its plain PyTorch twin on the
-   card, at the main path's shapes and at ragged ones, in float32 and
+2. Every kernel of the main paths against its plain PyTorch twin on the
+   card, at the main paths' shapes and at ragged ones, in float32 and
    bfloat16: max |kernel − plain| ≤ 1e-4 · max|plain| (f32) or
    2e-2 · max|plain| (bf16), in the working type; median CUDA-event times
-   of kernel and twin, measured in turns.
+   of kernel, twin and, where one PyTorch call computes the same function
+   (``F.layer_norm``, ``F.group_norm`` without SiLU,
+   ``scaled_dot_product_attention``), that call, measured in turns; and
+   each case's bound, the least time the card could take (bytes over
+   3.35 TB/s, FLOP over the dtype's peak, exp2 over the special-function
+   rate; the largest binds). Flash attention runs at the UNet's and the
+   encoder's widths at 60 s and 6 min (3600 and 21600 frames), ragged at
+   2100, and with lengths [384, 200, 0].
 3. One request through the real CLI ``main(argv)``: a synthetic 10-s WAV
    (600 frames), 1000 DDIM steps, CFG 2.0, float32, random weights from
    seed 0. The CSV must hold 600 rows under the 32 ARKit names, finite and
    in [0, 1]; the launch counters, zeroed just before, must read exactly
-   GroupNorm 15·1000+1, LayerNorm 12·1000+26, GEGLU 4·1000, conv 6.
+   GroupNorm 15·1000+1, LayerNorm 12·1000+26, GEGLU 4·1000, conv 6, and
+   flash attention 0 (600 frames stay on the dense path).
 4. Card against CPU: the same seeded weights and injected latents on a
    4-s clip, 20 steps, through ``SAIDPipeline`` on cuda (kernels) and on
    cpu (plain twins): coefficient MAE ≤ 1e-4 and max ≤ 1e-3, with a
@@ -30,12 +38,25 @@ Phases (any failure exits non-zero; there is no try/except around them):
 6. A bfloat16 request (4-s clip, 100 steps): finite and in [0, 1]; its
    MAE against the float32 card run of the same request is printed. (The
    100-step chain amplifies rounding, so this number is not a check.)
+7. A 60-s request through the CLI (3600 frames, 1000 DDIM steps, CFG 2.0,
+   float32): 3600 rows in [0, 1]; counters as in phase 3 and flash
+   attention 4·1000 + 12 (4 UNet self-attentions a step, 12 encoder
+   layers once).
+8. A 6-min request through the CLI (21600 frames, ``--solver dpmpp_2m
+   --num_steps 25``, float32): 21600 finite rows in [0, 1]; counters
+   GroupNorm 15·25+1, LayerNorm 12·25+26, GEGLU 4·25, conv 6, flash
+   attention 4·25 + 12.
+9. Card against CPU on a 40-s clip (2400 frames, past the dense limit):
+   the audio embedding and one CFG-folded denoiser call at t = 999, on
+   the card (flash kernel) and on the CPU (its plain version), same
+   weights and latents: max |card − CPU| ≤ 1e-4 · max |CPU| for each.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -61,7 +82,7 @@ from said_tpu_torch.cli._common import (  # noqa: E402
     random_init_,
 )
 from said_tpu_torch.models.said import SAIDPipeline, process_audio  # noqa: E402
-from said_tpu_torch.ops import conv, ffn, norms  # noqa: E402
+from said_tpu_torch.ops import attention, conv, ffn, norms  # noqa: E402
 
 DEV = torch.device("cuda")
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -70,7 +91,15 @@ BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (embedding) and 1.2e-2 (denoiser) on an H100 and 2.3e-2 / 1.2e-2 on the
 # CPU twins; a bf16 fault outside the kernels read 1.3e-1 on the CPU
 BF16_BOUND = {"audio embedding": 5e-2, "denoiser output": 3e-2}
+# card (kernels) against CPU (plain versions) at 2400 frames (phase 9),
+# relative to max |CPU|
+LONG_BOUND = 1e-4
 SR, FPS = 16000, 60
+# the card's peaks (NVIDIA's H100 SXM data sheet; the special-function
+# rate for exp2 as the FlashAttention-3 paper gives it)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+EXP2_PER_S = 3.9e12
 
 KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file:line, function)
     "group_norm": (norms.group_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
@@ -81,6 +110,12 @@ KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file
                   "said_tpu/ops/pallas_ffn.py:87", "geglu_ffn_pallas"),
     "strided_conv_gelu": (conv.strided_conv_gelu_kernel, "cuda", "said_tpu_torch/csrc/strided_conv_gelu.cu",
                           "said_tpu/ops/pallas_conv.py:133", "strided_conv_gelu_pallas"),
+    "flash_attention": (attention.flash_attention_kernel, "cuda", "said_tpu_torch/csrc/flash_attention.cu",
+                        "said_tpu/ops/pallas_attention.py:186", "_flash_tpu_packed"),
+}
+ALSO_REPLACES = {
+    "group_norm": "said_tpu/ops/pallas_norms.py:249 (group_norm_pallas_blocked)",
+    "flash_attention": "said_tpu/ops/pallas_attention.py:322 (_flash_tpu_packed_blocked)",
 }
 
 
@@ -95,76 +130,142 @@ def randn(shape, seed, dtype=torch.float32, scale=1.0, offset=0.0):
     return torch.from_numpy(a.astype(np.float32)).to(DEV, dtype)
 
 
-def timed_pair(kernel_fn, plain_fn, iters=15, warmup=3):
-    """Median CUDA-event milliseconds of kernel and plain, taken in turns."""
-    for _ in range(warmup):
-        kernel_fn()
-        plain_fn()
-    times = {"kernel": [], "plain": []}
+def timed(fns, budget_ms=1500.0, max_iters=15):
+    """Median CUDA-event milliseconds of each thunk, taken in turns; the
+    number of turns fits the slowest thunk into about ``budget_ms``."""
+    def once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    for fn in fns.values():  # warm-up
+        fn()
+    slowest = max(once(fn) for fn in fns.values())
+    iters = int(min(max_iters, max(3, budget_ms / max(slowest, 1e-3))))
+    times = {name: [] for name in fns}
     for _ in range(iters):
-        for name, fn in (("plain", plain_fn), ("kernel", kernel_fn)):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end))
-    return float(np.median(times["kernel"])), float(np.median(times["plain"]))
+        for name, fn in fns.items():
+            times[name].append(once(fn))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def bound(work, dtype):
+    """Least time (ms) for a call's work and the term that binds."""
+    terms = {"bytes": work["bytes"] / HBM_BYTES_PER_S,
+             "operations": max(work.get("flop", 0.0) / PEAK_FLOP_PER_S[dtype],
+                               work.get("exp2", 0.0) / EXP2_PER_S)}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 def kernel_cases():
-    """(kernel name, label, kernel thunk, plain thunk, headline?) per check."""
+    """(kernel name, label, dtype, thunks {kernel, plain[, library]}, work,
+    headline?) per check. ``work`` counts bytes (each input read once,
+    each output written once), FLOP and exp2 for the bound."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
+        isz = torch.finfo(dt).bits // 8
         for i, shape in enumerate([(2, 600, 192), (1, 600, 512), (1, 600, 768), (2, 37, 192)]):
-            c = shape[-1]
+            c, n = shape[-1], int(np.prod(shape))
             x, w, b = randn(shape, 1, dt, 2.0, 0.5), randn((c,), 2), randn((c,), 3)
-            cases.append(("layer_norm", f"{tag} {shape}",
-                          lambda x=x, w=w, b=b: norms.layer_norm_kernel(x, w, b, 1e-5),
-                          lambda x=x, w=w, b=b: norms.layer_norm_plain(x, w, b, 1e-5), i == 0 and tag == "f32"))
+            fns = {"kernel": lambda x=x, w=w, b=b: norms.layer_norm_kernel(x, w, b, 1e-5),
+                   "plain": lambda x=x, w=w, b=b: norms.layer_norm_plain(x, w, b, 1e-5)}
+            if dt == torch.float32:
+                fns["library"] = lambda x=x, w=w, b=b, c=c: torch.nn.functional.layer_norm(x, (c,), w, b, 1e-5)
+            cases.append(("layer_norm", f"{tag} {shape}", dt, fns,
+                          {"bytes": 2 * n * isz + 8 * c, "flop": 8 * n}, i == 0 and tag == "f32"))
         gn = [((2, 600, 192), 32, 1e-5, "silu"), ((2, 600, 192), 32, 1e-6, "none"),
               ((1, 31999, 512), 512, 1e-5, "none"), ((2, 37, 192), 32, 1e-5, "silu")]
         for i, (shape, g, eps, act) in enumerate(gn):
-            c = shape[-1]
+            c, n = shape[-1], int(np.prod(shape))
             x, w, b = randn(shape, 4, dt, 2.0, 30.0), randn((c,), 5), randn((c,), 6)
-            cases.append(("group_norm", f"{tag} {shape} G={g} eps={eps} {act}",
-                          lambda x=x, g=g, w=w, b=b, eps=eps, act=act: norms.group_norm_kernel(x, g, w, b, eps, act),
-                          lambda x=x, g=g, w=w, b=b, eps=eps, act=act: norms.group_norm_plain(x, g, w, b, eps, act),
-                          i == 0 and tag == "f32"))
+            fns = {"kernel": lambda x=x, g=g, w=w, b=b, eps=eps, act=act: norms.group_norm_kernel(x, g, w, b, eps, act),
+                   "plain": lambda x=x, g=g, w=w, b=b, eps=eps, act=act: norms.group_norm_plain(x, g, w, b, eps, act)}
+            if act == "none" and dt == torch.float32:
+                # F.group_norm takes (N, C, T): the (B, T, C) tensor's transposed view
+                fns["library"] = lambda x=x, g=g, w=w, b=b, eps=eps: torch.nn.functional.group_norm(
+                    x.transpose(1, 2), g, w, b, eps)
+            cases.append(("group_norm", f"{tag} {shape} G={g} eps={eps} {act}", dt, fns,
+                          {"bytes": 2 * n * isz + 8 * c, "flop": 10 * n}, i == 1 and tag == "f32"))
         for i, shape in enumerate([(2, 600, 192), (1, 600, 192), (2, 37, 192)]):
             x = randn(shape, 7, dt)
             w1, b1 = randn((1536, 192), 8, dt, 0.05), randn((1536,), 9, scale=0.1)
             w2, b2 = randn((192, 768), 10, dt, 0.05), randn((192,), 11, scale=0.1)
-            cases.append(("geglu_ffn", f"{tag} {shape}",
-                          lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_kernel(x, w1, b1, w2, b2),
-                          lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_plain(x, w1, b1, w2, b2),
-                          i == 0 and tag == "f32"))
+            m = shape[0] * shape[1]
+            fns = {"kernel": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_kernel(x, w1, b1, w2, b2),
+                   "plain": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_plain(x, w1, b1, w2, b2)}
+            work = {"bytes": 2 * m * 192 * isz + 3 * 768 * 192 * isz + 4 * (1536 + 192),
+                    "flop": 2 * m * 192 * 1536 + 2 * m * 768 * 192}
+            cases.append(("geglu_ffn", f"{tag} {shape}", dt, fns, work, i == 0 and tag == "f32"))
         convs = [(3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999), (3, 8), (2, 8)]
         for i, (k, t_in) in enumerate(convs):
             x, w = randn((1, t_in, 512), 12, dt), randn((k, 512, 512), 13, dt, 0.03)
-            cases.append(("strided_conv_gelu", f"{tag} K={k} T_in={t_in}",
-                          lambda x=x, w=w: conv.strided_conv_gelu_kernel(x, w),
-                          lambda x=x, w=w: conv.strided_conv_gelu_plain(x, w), i == 0 and tag == "f32"))
+            t_out = (t_in - k) // 2 + 1
+            fns = {"kernel": lambda x=x, w=w: conv.strided_conv_gelu_kernel(x, w),
+                   "plain": lambda x=x, w=w: conv.strided_conv_gelu_plain(x, w)}
+            work = {"bytes": (t_in + t_out) * 512 * isz + k * 512 * 512 * isz,
+                    "flop": 2 * t_out * k * 512 * 512}
+            cases.append(("strided_conv_gelu", f"{tag} K={k} T_in={t_in}", dt, fns, work, i == 0 and tag == "f32"))
+        flash = [(2, 3600, 6, 32, None), (1, 3600, 12, 64, None), (2, 21600, 6, 32, None),
+                 (1, 21600, 12, 64, None), (2, 2100, 6, 32, None), (3, 384, 6, 32, [384, 200, 0])]
+        for i, (b, t, h, d, lengths) in enumerate(flash):
+            q, k, v = (randn((b, t, h * d), 14 + j, dt) for j in range(3))
+            lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            fns = {"kernel": lambda q=q, k=k, v=v, h=h, lens=lens: attention.flash_attention_kernel(q, k, v, h, lens),
+                   "plain": lambda q=q, k=k, v=v, h=h, lens=lens: attention.flash_attention_plain(q, k, v, h, lens)}
+            fns["library"] = sdpa_thunk(q, k, v, h, lengths)
+            pairs = h * sum(min(n, t) ** 2 for n in (lengths or [t] * b))  # (query, key) pairs the data needs
+            work = {"bytes": 4 * b * t * h * d * isz, "flop": 4 * pairs * d, "exp2": pairs}
+            label = f"{tag} ({b}, {t}, {h}x{d})" + ("" if lengths is None else f" lengths {lengths}")
+            cases.append(("flash_attention", label, dt, fns, work, i == 0 and tag == "f32"))
     return cases
+
+
+def sdpa_thunk(q, k, v, h, lengths):
+    """``scaled_dot_product_attention`` on the (B, H, T, D) views of the
+    packed tensors, a timing yardstick only (the port never calls it).
+    Its math backend is excluded: in f32 at 21600 frames it would build
+    22 GB of scores. Lengths become a key mask (a length-0 row then gives
+    NaN there, not zeros; only its time is used)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, t, inner = q.shape
+    qh, kh, vh = (x.view(b, t, h, inner // h).transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(t, device=DEV)[None, :] < torch.tensor(lengths, device=DEV)[:, None])[:, None, None, :]
+
+    def run():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    return run
 
 
 def phase_kernels(record):
     print("\n== phase 2: kernels against their plain twins (card) ==")
-    for name, label, kfn, pfn, headline in kernel_cases():
-        got, ref = kfn(), pfn()
+    for name, label, dt, fns, work, headline in kernel_cases():
+        got, ref = fns["kernel"](), fns["plain"]()
         torch.cuda.synchronize()
-        dt = ref.dtype
-        check(got.dtype == dt and got.shape == ref.shape, f"{name} {label}: dtype/shape differ from the twin")
+        check(got.dtype == dt and ref.dtype == dt and got.shape == ref.shape,
+              f"{name} {label}: dtype/shape differ from the twin")
         err = (got.float() - ref.float()).abs().max().item()
-        bound = BOUND[dt] * ref.float().abs().max().item()
-        ms, plain_ms = timed_pair(kfn, pfn)
-        ok = err <= bound and np.isfinite(err)
-        print(f"{name:18s} {label:40s} max_abs_err {err:.3e} bound {bound:.3e} "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} {label}: max abs err {err} > bound {bound}")
+        limit = BOUND[dt] * ref.float().abs().max().item()
+        ok = err <= limit and np.isfinite(err)
+        ms = timed(fns)
+        bound_ms, bound_by = bound(work, dt)
+        library_ms = ms.get("library")
+        print(f"{name:18s} {label:40s} max_abs_err {err:.3e} limit {limit:.3e} kernel {ms['kernel']:.4f} ms "
+              f"plain {ms['plain']:.4f} ms library {'none' if library_ms is None else f'{library_ms:.4f} ms'} "
+              f"bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label}: max abs err {err} > limit {limit}")
         if headline:
-            record[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=label)
+            record[name].update(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=library_ms, shape=label)
 
 
 def write_wav(path, seconds, seed):
@@ -189,33 +290,92 @@ def read_csv(path):
     return rows[0], np.asarray(rows[1:], dtype=np.float64)
 
 
-def phase_request(record, gpu_line):
-    print("\n== phase 3: one 10-s request through the CLI (1000 DDIM steps, CFG 2.0, f32) ==")
-    wav, out = os.path.join(WORK, "clip10s.wav"), os.path.join(WORK, "clip10s.csv")
-    write_wav(wav, 10.0, seed=0)
+def expected_launches(steps):
+    """Kernel launches of one CFG request of ``steps`` denoise steps at
+    full width whose clip is longer than the dense limit: per step 15
+    GroupNorms, 12 LayerNorms, 4 GEGLUs, 4 UNet self-attentions; per clip
+    the encoder's conv_0 GroupNorm, 26 LayerNorms, 6 strided convs and 12
+    self-attentions."""
+    return {"group_norm": 15 * steps + 1, "layer_norm": 12 * steps + 26,
+            "geglu_ffn": 4 * steps, "strided_conv_gelu": 6, "flash_attention": 4 * steps + 12}
+
+
+def cli_request(record, gpu_line, phase, seconds, steps, flags, expected, seed):
+    """One request through the CLI on the card; the launch counters are
+    zeroed just before it and read just after."""
+    frames = int(seconds * FPS)
+    print(f"\n== phase {phase}: one {seconds:g}-s request through the CLI ({frames} frames, {steps} steps "
+          f"{' '.join(flags) or 'DDIM'}, CFG 2.0, f32) ==")
+    wav, out = os.path.join(WORK, f"clip{seconds:g}s.wav"), os.path.join(WORK, f"clip{seconds:g}s.csv")
+    write_wav(wav, seconds, seed=seed)
     for fn, *_ in KERNELS.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cli.main(["--device", "cuda", "--num_steps", "1000", "--guidance_scale", "2.0", "--dtype", "float32",
-              "--seed", "0", "--weights_path", "", "--audio_path", wav, "--output_path", out])
+    cli.main(["--device", "cuda", "--num_steps", str(steps), "--guidance_scale", "2.0", "--dtype", "float32",
+              "--seed", "0", "--weights_path", "", "--audio_path", wav, "--output_path", out, *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, (fn, *_) in KERNELS.items()}
     header, coeffs = read_csv(out)
-    print(f"request wall time {wall:.2f} s (model build + random init + prepare + 1000 steps + CSV) on {gpu_line}")
+    print(f"request wall time {wall:.2f} s (model build + random init + prepare + {steps} steps + CSV) on {gpu_line}")
     print(f"launch counts in the request: {launches}")
     print(f"CSV: {coeffs.shape[0]} rows x {len(header)} columns, min {coeffs.min():.4f} max {coeffs.max():.4f} "
           f"std {coeffs.std():.4f}")
     check(tuple(header) == ARKIT_BLENDSHAPES, f"CSV header {header}")
-    check(coeffs.shape == (600, 32), f"CSV holds {coeffs.shape}, expected (600, 32)")
+    check(coeffs.shape == (frames, 32), f"CSV holds {coeffs.shape}, expected ({frames}, 32)")
     check(np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0, "CSV values not finite in [0, 1]")
-    expected = {"group_norm": 15 * 1000 + 1, "layer_norm": 12 * 1000 + 26,
-                "geglu_ffn": 4 * 1000, "strided_conv_gelu": 6}
     check(launches == expected, f"launch counts {launches} != {expected}")
     for name, n in launches.items():
-        record[name]["launches"] = n
+        record[name].setdefault("launches_by_request", {})[f"{seconds:g}s {steps} steps {' '.join(flags)}".strip()] = n
     return wall
+
+
+def phase_request(record, gpu_line):
+    expected = dict(expected_launches(1000), flash_attention=0)  # 600 frames: dense self-attention
+    cli_request(record, gpu_line, 3, 10.0, 1000, [], expected, seed=0)
+    for name in KERNELS:
+        if name != "flash_attention":
+            record[name]["launches"] = record[name]["launches_by_request"]["10s 1000 steps"]
+
+
+def phase_long_requests(record, gpu_line):
+    cli_request(record, gpu_line, 7, 60.0, 1000, [], expected_launches(1000), seed=2)
+    record["flash_attention"]["launches"] = record["flash_attention"]["launches_by_request"]["60s 1000 steps"]
+    cli_request(record, gpu_line, 8, 360.0, 25, ["--solver", "dpmpp_2m"], expected_launches(25), seed=3)
+
+
+def phase_long_card_vs_cpu():
+    print("\n== phase 9: card (flash kernel) against CPU (its plain version), 40-s clip (2400 frames) ==")
+    frames = 2400
+    configure_precision("float32")
+    cpu_model = random_init_(build_said_model(), seed=0).eval()
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    rng = np.random.default_rng(4)
+    wave = process_audio(0.1 * rng.standard_normal(40 * SR).astype(np.float32))
+    latents = rng.standard_normal((1, frames, 32)).astype(np.float32)
+    out = {}
+    attention.flash_attention_kernel.launches = 0
+    for name, model, dev in (("card", card_model, DEV), ("cpu", cpu_model, torch.device("cpu"))):
+        pipe = SAIDPipeline(model)
+        wave_t, lat = torch.from_numpy(wave).to(dev), torch.from_numpy(latents).to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            emb = model.get_audio_embedding(wave_t, frames)
+            kv, table = pipe.prepare(wave_t, frames, True)
+            eps = model.unet(lat, kv_caches=kv, emb=table[999], cfg_fold=True)
+        out[name] = {"audio embedding": emb.cpu(), "denoiser output": eps.cpu()}
+        print(f"{name}: embedding {tuple(emb.shape)}, denoiser output {tuple(eps.shape)} "
+              f"in {time.perf_counter() - t0:.1f} s")
+    launches = attention.flash_attention_kernel.launches
+    check(launches == 12 + 12 + 4, f"flash launches on the card {launches} != 28 (two encoder runs, one denoiser call)")
+    for name in ("audio embedding", "denoiser output"):
+        want, got = out["cpu"][name], out["card"][name]
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        std = want.std().item()
+        print(f"{name:16s} card vs CPU: max {rel:.3e} relative to max |CPU| (bound {LONG_BOUND:.0e}), CPU std {std:.4f}")
+        check(got.shape == want.shape and std > 1e-3, f"{name}: shapes differ or the output is degenerate")
+        check(np.isfinite(rel) and rel <= LONG_BOUND, f"card vs CPU {name} at {frames} frames: {rel:.3e} > {LONG_BOUND}")
 
 
 def phase_card_vs_cpu():
@@ -308,14 +468,16 @@ def main():
 
     record = {name: {"name": name, "route": route, "source": src, "replaces": rep, "replaces_function": fn}
               for name, (_, route, src, rep, fn) in KERNELS.items()}
-    # the GroupNorm kernel also replaces the two-phase long-row form
-    record["group_norm"]["also_replaces"] = "said_tpu/ops/pallas_norms.py:249 (group_norm_pallas_blocked)"
+    for name, also in ALSO_REPLACES.items():
+        record[name]["also_replaces"] = also
     phase_kernels(record)
     phase_request(record, gpu_line)
     model, wave, latents = phase_card_vs_cpu()
     phase_bf16_vs_f32(model, wave, latents)
     del model
     phase_bf16()
+    phase_long_requests(record, gpu_line)
+    phase_long_card_vs_cpu()
 
     print("\nall phases passed")
     print(gpu_line)

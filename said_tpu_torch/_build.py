@@ -1,10 +1,11 @@
 """Build the CUDA C++ kernels in ``csrc/`` at first use and load them.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``. The
-library lands in ``build/said_tpu_torch/<hash>/`` beside the package,
-keyed by a hash of the sources and flags, so an unchanged checkout builds
-once and an edited source rebuilds. Nothing here runs at import time.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared
+library with a plain C interface, loaded through ``ctypes``. The library
+lands in ``build/said_tpu_torch/<hash>/`` beside the package, keyed by a
+hash of the sources and flags, so an unchanged checkout builds once and
+an edited source rebuilds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "said_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of the C entry points (csrc/common.cuh: said::DType)
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "said_geglu_ffn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, out, B, T_in, T_out, C_in, C_out, K, dtype, stream
     "said_strided_conv_gelu": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, lengths (NULL or (B,) int32), B, T, S, H, D, dtype, stream
+    "said_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -57,21 +60,37 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libsaid_kernels.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     out = library_path()
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(_CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        nvcc, tag = _nvcc(), os.getpid()
+        sources = sorted(_CSRC.glob("*.cu"))
+        objects = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
+        tmp = out.with_name(f"{out.name}.{tag}.tmp")
+        try:
+            _run_all([[nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                      for src, obj in zip(sources, objects)])
+            _run_all([[nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+            os.replace(tmp, out)
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -3,11 +3,13 @@
 Flag-compatible with ``said_tpu/cli/inference.py`` (the reference's
 ``script/inference.py`` defaults: 1000 DDIM steps, guidance 2.0, eta 0,
 60 fps; ``--init_sample_path``/``--mask_path`` masked editing and
-intermediate dumps). ``--device`` defaults to ``cuda``. Unlike the JAX
-CLI's, whose path defaults point into ``../BlendVOCA``, every path
-default here lies in the working directory: ``--audio_path`` is
-required, and without ``--weights_path`` the weights are random from
-``--seed``.
+intermediate dumps; ``--solver dpmpp_2m`` for DPM-Solver++(2M), e.g.
+with ``--num_steps 25``). Clips of any length run: self-attention over
+more than 2048 frames goes to the flash-attention kernel on the card.
+``--device`` defaults to ``cuda``. Unlike the JAX CLI's, whose path
+defaults point into ``../BlendVOCA``, every path default here lies in
+the working directory: ``--audio_path`` is required, and without
+``--weights_path`` the weights are random from ``--seed``.
 
 Options of the JAX CLI that are not ported yet fail with an error naming
 the ROADMAP item; the TPU-only ``--denoise_chunk``,
@@ -25,7 +27,6 @@ import os
 import numpy as np
 import torch
 
-from said_tpu.utils.audio import fit_audio_unet, load_audio
 from said_tpu_torch.cli._common import (
     ARKIT_BLENDSHAPES,
     build_said_model,
@@ -37,6 +38,7 @@ from said_tpu_torch.cli._common import (
     str2bool,
 )
 from said_tpu_torch.models.said import SAIDPipeline, process_audio
+from said_tpu_torch.utils.audio import fit_audio_unet, load_audio
 
 
 def add_arguments(parser: argparse.ArgumentParser) -> None:
@@ -66,7 +68,8 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "dense", "flash", "flash_sp"],
-                        help="auto/dense: dense self-attention and the banded "
+                        help="auto, dense and flash: self-attention by clip length (dense up "
+                             "to 2048 frames, the flash kernel above) and the banded "
                              "cross-attention (numerically the masked dense form)")
     parser.add_argument("--seq_shards", type=int, default=0)
     parser.add_argument("--length_bucket", type=int, default=0)
@@ -76,12 +79,11 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
-        (args.solver == "dpmpp_2m", "--solver dpmpp_2m", "ROADMAP Queue 1 item 9 (DPM++ serving)"),
         (args.length_bucket > 0, "--length_bucket > 0", "ROADMAP Queue 1 item 8 (bucketed batches)"),
         (args.streaming_window > 0, "--streaming_window > 0", "ROADMAP Queue 1 item 9 (streaming)"),
         (args.seq_shards > 1, "--seq_shards > 1", "ROADMAP Queue 1 item 13 (multi-GPU)"),
-        (args.attn_impl.startswith("flash"), f"--attn_impl {args.attn_impl}",
-         "ROADMAP Queue 2 K1 (the flash-attention kernel)"),
+        (args.attn_impl == "flash_sp", "--attn_impl flash_sp",
+         "ROADMAP Queue 1 item 13 (multi-GPU, sequence-parallel attention)"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -124,6 +126,7 @@ def main(argv=None) -> np.ndarray:
         guidance_scale=args.guidance_scale,
         guidance_rescale=args.guidance_rescale,
         eta=args.eta,
+        solver=args.solver,
         fps=args.fps,
         generator=torch.Generator(device=device).manual_seed(args.seed),
         save_intermediate=args.save_intermediate,

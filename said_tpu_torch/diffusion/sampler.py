@@ -1,12 +1,14 @@
-"""The DDIM sampling chain as a host loop over denoise steps.
+"""The sampling chain as a host loop over denoise steps: DDIM or
+DPM-Solver++(2M).
 
 Port of ``said_tpu.diffusion.sampler`` (``prepare_chain`` :62,
-``make_step`` :115, ``finalize_chain`` :189, ``sample`` :195), DDIM only:
+``make_step`` :115, ``finalize_chain`` :189, ``sample`` :195):
 classifier-free guidance with SAiD's combination, guidance rescale,
-eta-noised steps, partial-strength denoising of an initial sample, and
-masked editing that re-noises the initial latents to the *next*
-timestep each step. Where the JAX package scans the chain inside one
-compiled program, this runs one eager denoiser call per step.
+eta-noised DDIM steps, DPM-Solver++(2M) with its (latent, previous x0)
+carry, partial-strength denoising of an initial sample, and masked
+editing that re-noises the initial latents to the *next* timestep each
+step (for both solvers). Where the JAX package scans the chain inside
+one compiled program, this runs one eager denoiser call per step.
 
 torch and JAX draw different numbers from the same seed, so callers may
 inject every random array: the initial latents (the pipeline), the
@@ -27,8 +29,12 @@ from said_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     cfg_combine,
     ddim_step,
+    dpmpp_2m_tables,
     inference_timesteps,
+    pred_x0_from_model_output,
 )
+
+SOLVERS = ("ddim", "dpmpp_2m")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +46,15 @@ class SamplerConfig:
     guidance_scale: float = 2.5
     guidance_rescale: float = 0.0
     eta: float = 0.0
+    # "ddim" (the reference's sampler) or "dpmpp_2m" (DPM-Solver++(2M), a
+    # deterministic second-order multistep solver: far fewer steps)
+    solver: str = "ddim"
+
+    def __post_init__(self):
+        if self.solver not in SOLVERS:
+            raise ValueError(f"unknown solver: {self.solver!r}")
+        if self.solver == "dpmpp_2m" and self.eta > 0:
+            raise ValueError("dpmpp_2m is a deterministic (ODE) solver; eta > 0 is DDIM-only")
 
     @property
     def do_cfg(self) -> bool:
@@ -61,6 +76,7 @@ class Chain:
     edit_noise: Optional[torch.Tensor]
     ts_used: np.ndarray  # timesteps of the used steps, descending
     ts_next: np.ndarray  # timestep of the following step; -1 after the last
+    dpm: Optional[dict] = None  # dpmpp_2m_tables(...) for the used steps
 
 
 def _randn_like(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -89,7 +105,8 @@ def prepare_chain(
         # partial-strength editing: noise the inits to the first used timestep
         noise = _randn_like(latents, generator) if edit_noise is None else edit_noise
         latents = schedule.add_noise(latents, noise, int(ts_used[0]))
-    return Chain(latents, init_latents, noise, ts_used, ts_next)
+    dpm = dpmpp_2m_tables(schedule, ts_used, n) if config.solver == "dpmpp_2m" else None
+    return Chain(latents, init_latents, noise, ts_used, ts_next, dpm)
 
 
 def make_step(
@@ -99,8 +116,10 @@ def make_step(
     chain: Chain,
     mask: Optional[torch.Tensor],
     cfg_folded: bool,
-) -> Callable[[torch.Tensor, int, int, Optional[torch.Tensor]], torch.Tensor]:
-    """The per-step update ``(lat, t, t_next, eta_noise) -> new_lat``.
+) -> Callable[[torch.Tensor, Optional[torch.Tensor], int, Optional[torch.Tensor]],
+              Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The per-step update ``(lat, prev_x0, i, eta_noise) -> (new_lat, x0)``
+    for used step ``i``; ``x0`` (the DPM++ carry) is None under DDIM.
 
     ``denoise_fn(x, t)`` predicts noise; with ``cfg_folded`` it takes the
     un-duplicated (B, ...) latent and returns (2B, ...) predictions itself
@@ -109,13 +128,23 @@ def make_step(
     cfg = config
     n = cfg.num_inference_steps
 
-    def step(lat, t, t_next, eta_noise):
+    def step(lat, prev_x0, i, eta_noise):
+        t, t_next = int(chain.ts_used[i]), int(chain.ts_next[i])
         model_in = torch.cat([lat, lat]) if cfg.do_cfg and not cfg_folded else lat
         noise_pred = denoise_fn(model_in, t)
         if cfg.do_cfg:
             uncond_pred, cond_pred = noise_pred.chunk(2)
             noise_pred = cfg_combine(uncond_pred, cond_pred, cfg.guidance_scale, cfg.guidance_rescale)
-        new_lat = ddim_step(schedule, noise_pred, t, lat, n, eta=cfg.eta, noise=eta_noise)
+        x0 = None
+        if chain.dpm is not None:
+            tab = chain.dpm
+            x0 = pred_x0_from_model_output(schedule, noise_pred, schedule.alpha(t), lat)
+            # (1 − first) · c_d1 formed in float32, as the JAX step does
+            c_hist = float((np.float32(1.0) - tab["first"][i]) * tab["c_d1"][i])
+            new_lat = float(tab["c_x"][i]) * lat + float(tab["c_d0"][i]) * x0
+            new_lat = new_lat + c_hist * (x0 - prev_x0)
+        else:
+            new_lat = ddim_step(schedule, noise_pred, t, lat, n, eta=cfg.eta, noise=eta_noise)
         if mask is not None:
             init_noisy = (
                 schedule.add_noise(chain.init_latents, chain.edit_noise, t_next)
@@ -123,7 +152,7 @@ def make_step(
                 else chain.init_latents
             )
             new_lat = init_noisy * mask + new_lat * (1.0 - mask)
-        return new_lat
+        return new_lat, x0
 
     return step
 
@@ -164,6 +193,7 @@ def sample(
         mask if init_samples is not None else None, cfg_folded,
     )
     lat = chain.latents
+    x0 = torch.zeros_like(lat) if chain.dpm is not None else None
     interms: List[torch.Tensor] = []
     for i in range(k):
         if save_intermediate:
@@ -171,6 +201,6 @@ def sample(
         noise_i = None
         if config.eta > 0:
             noise_i = eta_noise[i] if eta_noise is not None else _randn_like(lat, generator)
-        lat = step(lat, int(chain.ts_used[i]), int(chain.ts_next[i]), noise_i)
+        lat, x0 = step(lat, x0, i, noise_i)
     result = finalize_chain(lat, latent_scale)
     return result, torch.stack(interms) if save_intermediate else None

@@ -1,4 +1,5 @@
-"""Cosine noise schedule, DDIM step and classifier-free guidance.
+"""Cosine noise schedule, DDIM step, DPM-Solver++(2M) tables and
+classifier-free guidance.
 
 Port of ``said_tpu.diffusion.schedule``: a DDIM scheduler with
 ``beta_schedule="squaredcos_cap_v2"``, ``set_alpha_to_one=True``,
@@ -149,6 +150,59 @@ def ddim_step(
             raise ValueError("eta > 0 requires a noise array")
         prev_sample = prev_sample + float(std_dev_t) * noise
     return prev_sample
+
+
+def dpmpp_2m_tables(
+    schedule: DiffusionSchedule, ts_used: np.ndarray, num_inference_steps: int
+) -> dict:
+    """Per-step coefficients of DPM-Solver++(2M) (Lu et al. 2022,
+    arXiv:2211.01095), data prediction, multistep; the port of
+    ``said_tpu.diffusion.schedule.dpmpp_2m_tables`` (:217).
+
+    With lambda = log(alpha / sigma), the update from step s0 to the
+    previous timestep t is
+
+        x_t = (sigma_t / sigma_s0) x − alpha_t (e^{−h} − 1) [D0 + (D0 − D1) / (2 r0)]
+
+    (h = lambda_t − lambda_s0, r0 = h0 / h, D0 = x0(s0), D1 = the previous
+    step's x0), written per step as
+
+        new = c_x · x + c_d0 · x0 + (1 − first) · c_d1 · (x0 − prev_x0).
+
+    ``first`` marks the first-order steps: the chain's first (no history)
+    and the final boundary step, where sigma_t = 0 under
+    ``set_alpha_to_one`` makes h infinite and x = x0 is exact. The tables
+    are float64 host math cast to float32 (numpy arrays of len(ts_used)).
+    """
+    acp = np.asarray(schedule.alphas_cumprod, np.float64)
+    ts = np.asarray(ts_used, np.int64)
+    step = schedule.num_train_timesteps // num_inference_steps
+    prev = ts - step
+    a_cur = acp[ts]
+    a_prev = np.where(prev >= 0, acp[np.maximum(prev, 0)], float(schedule.final_alpha_cumprod))
+    alpha_c, sigma_c = np.sqrt(a_cur), np.sqrt(1.0 - a_cur)
+    alpha_p, sigma_p = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
+    with np.errstate(divide="ignore"):
+        lam_c = np.log(alpha_c) - np.log(sigma_c)
+        lam_p = np.log(alpha_p) - np.log(sigma_p)  # +inf where sigma_p == 0
+    h = lam_p - lam_c
+    k = len(ts)
+    first = np.zeros(k)
+    first[0] = 1.0
+    first[~np.isfinite(h)] = 1.0
+
+    c_x = np.where(sigma_c > 0, sigma_p / np.maximum(sigma_c, 1e-300), 0.0)
+    # e^{−h} − 1, exactly −1 at h = inf (the x = x0 boundary)
+    phi = np.where(np.isfinite(h), np.expm1(-np.where(np.isfinite(h), h, 0.0)), -1.0)
+    c_d0 = -alpha_p * phi
+
+    h0 = np.zeros(k)
+    h0[1:] = lam_c[1:] - lam_c[:-1]
+    safe_h = np.where((first > 0) | ~np.isfinite(h), 1.0, h)
+    r0 = h0 / safe_h
+    c_d1 = np.where(first > 0, 0.0, -0.5 * alpha_p * phi / np.maximum(r0, 1e-300))
+    return {name: a.astype(np.float32) for name, a in
+            (("c_x", c_x), ("c_d0", c_d0), ("c_d1", c_d1), ("first", first))}
 
 
 def rescale_noise_cfg(

@@ -7,12 +7,12 @@ two stages:
 
 - **prepare**, once per clip: encoder → null embedding → banded K/V
   caches → timestep-MLP table;
-- **denoise**, a host loop of DDIM steps, each one denoiser call with the
-  CFG shared-prefix fold.
+- **denoise**, a host loop of DDIM or DPM-Solver++(2M) steps, each one
+  denoiser call with the CFG shared-prefix fold.
 
 Parameter names are the reference's (``denoiser.model.…``,
-``audio_encoder.…``, ``null_cond_emb``). Not ported yet: DPM-Solver++,
-length bucketing and mixed-length batches, sequence-parallel mode and
+``audio_encoder.…``, ``null_cond_emb``). Not ported yet: length
+bucketing and mixed-length batches, sequence-parallel mode and
 streaming; the TPU-only chunked denoise dispatch is not needed here.
 """
 
@@ -166,6 +166,7 @@ class SAIDPipeline:
         guidance_scale: float = 2.5,
         guidance_rescale: float = 0.0,
         eta: float = 0.0,
+        solver: str = "ddim",
         fps: int = 60,
         generator: Optional[torch.Generator] = None,
         latents: Optional[np.ndarray] = None,
@@ -173,7 +174,10 @@ class SAIDPipeline:
         edit_noise: Optional[np.ndarray] = None,
         save_intermediate: bool = False,
     ) -> SAIDInferenceOutput:
-        """Full inference (reference ``SAID.inference`` semantics, DDIM).
+        """Full inference (reference ``SAID.inference`` semantics).
+
+        ``solver`` is "ddim" (the reference's sampler) or "dpmpp_2m"
+        (DPM-Solver++(2M): deterministic, so ``eta`` must be 0).
 
         Random arrays may be injected, since torch and JAX draw different
         numbers from the same seed: ``latents`` (B, T, C) — without it and
@@ -208,6 +212,7 @@ class SAIDPipeline:
             guidance_scale=guidance_scale,
             guidance_rescale=guidance_rescale,
             eta=eta,
+            solver=solver,
         )
         kv_caches, emb_table = self.prepare(wave, window_size, config.do_cfg)
         unet = self.model.unet

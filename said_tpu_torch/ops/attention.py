@@ -1,27 +1,42 @@
 """Multi-head attention on flat (B, T, H·D) projections, f32 softmax.
 
-Port of ``said_tpu.ops.attention``: the banded cross-attention over
-pre-gathered keys (``banded_attention_cached``) and the dense branch of
-``multi_head_attention``. Below 2048 frames the JAX package runs both as
-plain einsums even on the TPU, so neither is a kernel.
+Port of ``said_tpu.ops.attention`` (the banded cross-attention over
+pre-gathered keys, ``banded_attention_cached``, and the dense branch of
+``multi_head_attention``) and of the self-attention router
+``flash_attention_flat`` / ``_flash_route``
+(said_tpu/ops/pallas_attention.py:746, :580), here ``self_attention``:
 
-``self_attention`` is the router that ``flash_attention_flat`` is in the
-JAX package. Above 2048 frames the TPU runs the flash kernel
-``_flash_tpu_packed`` (``said_tpu/ops/pallas_attention.py:186``), which
-has no Hopper port yet (ROADMAP Queue 2, K1): on CUDA such a clip raises
-instead of running a substitute. On the CPU the dense path serves every
-length, as the JAX package does off-TPU.
+- T and S ≤ ``DENSE_MAX`` (2048 frames): dense, on any device; the JAX
+  package runs these as plain einsums even on the TPU;
+- longer, on the CPU: ``flash_attention_plain``;
+- longer, on CUDA: ``flash_attention_kernel``, the hand-written kernel
+  ``csrc/flash_attention.cu``, which replaces both TPU kernels
+  ``_flash_tpu_packed`` (:186, K1) and ``_flash_tpu_packed_blocked``
+  (:322, K2); its source note says what bounds it and how it is laid
+  out. Any other device raises.
+
+Nothing catches a kernel failure to fall back. The TPU router's VMEM
+thresholds (``_fullk_smax``, ``_blocked_blocks``) have no counterpart:
+the one kernel streams any key length.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from said_tpu_torch import _build
 
 _NEG_INF = float(torch.finfo(torch.float32).max)
 
-# Longest self-attention (frames) the dense path serves on CUDA; the JAX
+# Longest self-attention (frames) the dense path serves; the JAX
 # router's ``_DENSE_MAX`` (said_tpu/ops/pallas_attention.py:522).
 DENSE_MAX = 2048
+_LOG2E = math.log2(math.e)
+# keys per step of the plain version's loop: its scores are (B, H, T, 512)
+_PLAIN_BLOCK_K = 512
+_HEAD_DIMS = (32, 64)
 
 
 def _softmax_f32(scores: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -66,21 +81,126 @@ def dense_attention(
     return out.reshape(b, t, inner)
 
 
+def _q_scale(d: int) -> float:
+    """d^-1/2 · log2(e) as the float32 the kernels multiply Q by."""
+    return float(torch.tensor(d**-0.5 * _LOG2E, dtype=torch.float32))
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of the flash kernel, with its numerics: q (B, T, H·D),
+    k/v (B, S, H·D), optional (B,) lengths.
+
+    A key-blocked online softmax: Q scaled by d^-1/2 · log2(e) in f32 and
+    rounded to the input dtype, f32 scores, p = exp2(s − running max)
+    rounded to V's dtype before the PV product and the sum, f32 state, one
+    division at the end. Keys at or past a row's length are masked, query
+    rows at or past it are 0, a length-0 row is 0. Memory O(B·H·T·512).
+    """
+    b, t, inner = q.shape
+    s = k.shape[1]
+    h = num_heads
+    d = inner // h
+    dt = q.dtype
+    qh = (q.float() * _q_scale(d)).to(dt).float().reshape(b, t, h, d).transpose(1, 2)
+    kh = k.float().reshape(b, s, h, d).transpose(1, 2)
+    vh = v.float().reshape(b, s, h, d).transpose(1, 2)
+    m = torch.full((b, h, t), -math.inf, device=q.device)
+    denom = torch.zeros((b, h, t), device=q.device)
+    acc = torch.zeros((b, h, t, d), device=q.device)
+    kv_len = s
+    lens = None
+    if lengths is not None:
+        lens = lengths.to(device=q.device, dtype=torch.int64).clamp(min=0)
+        kv_len = min(s, int(lens.max()))
+    for k0 in range(0, kv_len, _PLAIN_BLOCK_K):
+        k1 = min(k0 + _PLAIN_BLOCK_K, s)
+        sc = qh @ kh[:, :, k0:k1].transpose(-1, -2)  # (b, h, t, block) f32
+        if lens is not None:
+            col = torch.arange(k0, k1, device=q.device)
+            sc = sc.masked_fill(col[None, None, None, :] >= lens[:, None, None, None], -math.inf)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        # m_new = -inf: every key so far masked; keep the zero state
+        alpha = torch.where(m_new == -math.inf, 1.0, torch.exp2(m - m_new))
+        p = torch.where(sc == -math.inf, 0.0, torch.exp2(sc - m_new[..., None]))
+        p = p.to(dt).float()
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ vh[:, :, k0:k1]
+        m = m_new
+    live = denom > 0
+    if lens is not None:
+        live = live & (torch.arange(t, device=q.device)[None, None, :] < lens[:, None, None])
+    out = torch.where(live[..., None], acc / torch.where(live, denom, 1.0)[..., None], 0.0)
+    return out.transpose(1, 2).reshape(b, t, inner).to(dt)
+
+
+def flash_attention_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch ``said_flash_attention`` on contiguous CUDA tensors q
+    (B, T, H·D) and k/v (B, S, H·D) of one dtype (float32 or bfloat16),
+    head dim D ∈ {32, 64}; ``lengths``, if given, a contiguous (B,) int32
+    tensor on the same device."""
+    name = "flash_attention_kernel"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: needs a CUDA tensor, got device {q.device}")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"{name}: needs q (B, T, H·D) and k, v (B, S, H·D) of one shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, inner = q.shape
+    s = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != inner or t == 0 or s == 0:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} do not pair")
+    if num_heads <= 0 or inner % num_heads or inner // num_heads not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim must be one of {_HEAD_DIMS}, got {inner} / {num_heads} heads")
+    for key, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name}: {key} is {x.dtype} on {x.device}, q is {q.dtype} on {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k and v must be contiguous")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: input is on {q.device}, not the current device")
+    lens_ptr = None
+    if lengths is not None:
+        if (lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,)
+                or lengths.device != q.device or not lengths.is_contiguous()):
+            raise ValueError(f"{name}: lengths must be a contiguous ({b},) int32 tensor on {q.device}, "
+                             f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
+        lens_ptr = lengths.data_ptr()
+    out = torch.empty_like(q)
+    err = _build.library().said_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+        b, t, s, num_heads, inner // num_heads, _build.DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(err, name)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0
+
+
 def self_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
 ) -> torch.Tensor:
-    """Router for unmasked self-attention (the JAX ``flash_attention_flat``).
-
-    CPU: dense at any length. Any other device: dense up to
-    ``DENSE_MAX`` frames; beyond, ``NotImplementedError`` — the flash
-    kernel that serves those lengths on the TPU is not ported yet.
-    """
-    if q.device.type != "cpu" and max(q.shape[1], k.shape[1]) > DENSE_MAX:
-        raise NotImplementedError(
-            f"self-attention over {max(q.shape[1], k.shape[1])} frames needs "
-            f"the flash-attention kernel (K1, _flash_tpu_packed, "
-            f"said_tpu/ops/pallas_attention.py:186), which is not ported to "
-            f"CUDA yet (ROADMAP Queue 2 item K1); clips up to {DENSE_MAX} "
-            f"frames ({DENSE_MAX / 60:.1f} s at 60 fps) run on the dense path"
-        )
-    return dense_attention(q, k, v, num_heads)
+    """Router for unmasked self-attention (the JAX ``flash_attention_flat``):
+    dense up to ``DENSE_MAX`` frames on any device; beyond, the plain flash
+    version on the CPU and the flash kernel on any other device (which
+    raises unless it is CUDA)."""
+    if max(q.shape[1], k.shape[1]) <= DENSE_MAX:
+        return dense_attention(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads)
+    return flash_attention_kernel(q, k, v, num_heads)

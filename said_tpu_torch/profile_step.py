@@ -2,8 +2,9 @@
 
     python -m said_tpu_torch.profile_step [--repeats 5] [--out profile_step.json]
 
-One cell per clip length (10 s and 30 s: 600 and 1800 frames) and
-compute dtype (float32, bfloat16): the full-width SAID
+One cell per clip length (10 s, 30 s and 60 s: 600, 1800 and 3600
+frames; the last is past the dense limit, so its self-attention runs the
+flash kernel) and compute dtype (float32, bfloat16): the full-width SAID
 (wav2vec2-base + the 192-channel UNet) with random weights from seed 0,
 synthetic audio, batch 1 with CFG 2.0 (the UNet runs at batch 2 after its
 first cross-attention). Per cell and repeat:
@@ -40,12 +41,13 @@ from said_tpu_torch.diffusion.sampler import SamplerConfig, sample
 from said_tpu_torch.models.said import SAMPLING_RATE, SAIDPipeline, process_audio
 
 FPS = 60
-CLIPS_S = (10.0, 30.0)
+CLIPS_S = (10.0, 30.0, 60.0)
 DTYPES = ("float32", "bfloat16")
 STEPS, PROFILE_STEPS = 300, 20
 
 # (substring of the lower-cased device event name, family); first match wins
 FAMILIES = (
+    ("flash_attention", "flash_attention (ours)"),
     ("geglu", "geglu_ffn (ours)"),
     ("_group_norm_fwd", "group_norm (ours)"),
     ("_layer_norm_fwd", "layer_norm (ours)"),

@@ -1,8 +1,9 @@
 """The port's CLI and import hygiene, on the CPU.
 
-The CLI runs in a subprocess in which ``jax``, ``flax`` and ``pandas``
-cannot be imported (the machine with the card has none of them): every
-module of ``said_tpu_torch`` is imported there first, then
+The CLI runs in a subprocess in which ``jax``, ``flax``, ``pandas`` and
+the JAX package ``said_tpu`` cannot be imported (the machine with the
+card has none of the first three, and the port depends on nothing of
+the fourth): every module of ``said_tpu_torch`` is imported there first, then
 ``said_tpu_torch.cli.inference --device cpu --num_steps 3`` turns a
 0.8-s WAV into a CSV of 48 rows under the 32 ARKit names.
 """
@@ -11,12 +12,14 @@ import argparse
 import csv
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from said_tpu_torch.cli import inference
 from said_tpu_torch.cli._common import (
@@ -25,8 +28,10 @@ from said_tpu_torch.cli._common import (
     load_said_weights,
     save_blendshape_coeffs,
 )
-from said_tpu_torch.models.said import SAID
+from said_tpu.utils import audio as jaudio
+from said_tpu_torch.models.said import SAID, SAIDPipeline, process_audio
 from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from said_tpu_torch.utils import audio
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -36,7 +41,7 @@ _BLOCKED_RUN = textwrap.dedent(
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "flax", "pandas", "triton"):
+            if name.split(".")[0] in ("jax", "flax", "pandas", "triton", "said_tpu"):
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, Block())
@@ -45,13 +50,14 @@ _BLOCKED_RUN = textwrap.dedent(
         importlib.import_module(mod.name)
     from said_tpu_torch.cli import inference
     inference.main(sys.argv[1:])
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pandas", "triton"))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pandas", "triton", "said_tpu"))
     assert not leaked, leaked
     """
 )
 
 
 def test_cli_runs_without_jax_flax_pandas(tmp_path):
+    """(and without ``said_tpu``)"""
     from scipy.io import wavfile
 
     t = np.arange(12800) / 16000
@@ -88,17 +94,76 @@ def test_csv_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--solver", "dpmpp_2m"], "Queue 1 item 9"),
         (["--length_bucket", "120"], "Queue 1 item 8"),
         (["--streaming_window", "3600"], "Queue 1 item 9"),
         (["--seq_shards", "2"], "Queue 1 item 13"),
-        (["--attn_impl", "flash"], "K1"),
-        (["--attn_impl", "flash_sp"], "K1"),
+        (["--attn_impl", "flash_sp"], "Queue 1 item 13"),
     ],
 )
 def test_unported_options_fail_loudly(flags, item):
     with pytest.raises(SystemExit, match=item):
         inference.main(["--device", "cpu", *flags])
+
+
+def _write_wav(path, seconds=0.4):
+    from scipy.io import wavfile
+
+    t = np.arange(int(seconds * 16000)) / 16000
+    wave = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+    wavfile.write(path, 16000, (wave * 32767).astype(np.int16))
+
+
+@pytest.mark.parametrize(
+    "flags,kw",
+    [(["--solver", "dpmpp_2m"], {"solver": "dpmpp_2m"}), (["--attn_impl", "flash"], {})],
+    ids=["dpmpp_2m", "attn_flash"],
+)
+def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
+    """``--solver dpmpp_2m`` reaches the sampler and ``--attn_impl flash``
+    routes as ``auto``: the CSV equals the same request made straight
+    through ``SAIDPipeline`` (tiny encoder, 0.4-s clip, 3 steps)."""
+    def tiny(*args, **kwargs):
+        return SAID(audio_config=Wav2Vec2Config.tiny())
+
+    monkeypatch.setattr(inference, "build_said_model", tiny)
+    wav, out = tmp_path / "clip.wav", tmp_path / "out.csv"
+    _write_wav(wav)
+    got = inference.main(["--device", "cpu", "--num_steps", "3", "--audio_path", str(wav),
+                          "--output_path", str(out), *flags])
+    pipe = SAIDPipeline(load_said_weights(tiny(), "", seed=0).eval())
+    wave = process_audio(audio.fit_audio_unet(audio.load_audio(str(wav), 16000), 16000, 60, 1).waveform)
+    want = pipe.inference(wave, num_inference_steps=3, guidance_scale=2.0,
+                          generator=torch.Generator().manual_seed(0), **kw).result[0]
+    np.testing.assert_array_equal(got, want)
+    assert load_blendshape_coeffs(str(out)).shape == (24, 32)
+
+
+@pytest.mark.parametrize("sr,channels,dtype", [(16000, 1, np.int16), (22050, 2, np.int16),
+                                               (8000, 1, np.float32), (44100, 1, np.int32)])
+def test_audio_io_matches_the_jax_package(tmp_path, sr, channels, dtype):
+    """The port's copy of load_audio/resample/fit_audio_unet equals
+    ``said_tpu.utils.audio`` bit for bit."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(sr)
+    x = rng.uniform(-0.5, 0.5, (int(0.37 * sr), channels)).squeeze()
+    if dtype != np.float32:
+        x = x * np.iinfo(dtype).max
+    path = str(tmp_path / "a.wav")
+    wavfile.write(path, sr, x.astype(dtype))
+    got, want = audio.load_audio(path, 16000), jaudio.load_audio(path, 16000)
+    np.testing.assert_array_equal(got, want)
+    for divisor in (1, 3):
+        fg, fw = audio.fit_audio_unet(got, 16000, 60, divisor), jaudio.fit_audio_unet(want, 16000, 60, divisor)
+        assert fg.window_size == fw.window_size
+        np.testing.assert_array_equal(fg.waveform, fw.waveform)
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    sources = [*(REPO / "said_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    pattern = re.compile(r"^\s*(from|import)\s+said_tpu(\.|\s|$)", re.M)
+    for path in sources:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_defaults_stay_in_the_working_directory():

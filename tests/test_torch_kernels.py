@@ -115,7 +115,33 @@ def test_routers_launch_kernels_on_cuda(dev):
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1]
 
 
-def test_self_attention_refuses_long_clips_on_cuda(dev):
-    q = torch.zeros((1, attention.DENSE_MAX + 1, 192), device=dev)
-    with pytest.raises(NotImplementedError, match="flash-attention kernel"):
-        attention.self_attention(q, q, q, 6)
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("heads,d", [(6, 32), (12, 64)])
+@pytest.mark.parametrize("b,t,s,lengths", [
+    (2, 2100, 2100, None),           # ragged: 2100 = 32·64 + 52
+    (1, 700, 1300, None),            # more keys than queries
+    (3, 384, 384, [384, 200, 0]),    # straddling and length-0 rows
+    (2, 130, 130, [1, 129]),
+])
+def test_flash_attention_kernel(dev, dtype, heads, d, b, t, s, lengths):
+    q = _randn((b, t, heads * d), 18, dev, dtype)
+    k = _randn((b, s, heads * d), 19, dev, dtype)
+    v = _randn((b, s, heads * d), 20, dev, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = attention.flash_attention_kernel(q, k, v, heads, lens)
+    _assert_close(got, attention.flash_attention_plain(q, k, v, heads, lens), dtype)
+    if lengths is not None:
+        for i, n in enumerate(lengths):
+            assert torch.all(got[i, n:] == 0)
+
+
+def test_self_attention_routes_long_clips_to_the_kernel(dev):
+    n = attention.DENSE_MAX + 1
+    q = _randn((1, n, 192), 21, dev, torch.float32)
+    before = attention.flash_attention_kernel.launches
+    out = attention.self_attention(q, q, q, 6)
+    assert attention.flash_attention_kernel.launches == before + 1
+    _assert_close(out, attention.flash_attention_plain(q, q, q, 6), torch.float32)
+    short = q[:, : attention.DENSE_MAX]
+    attention.self_attention(short, short, short, 6)
+    assert attention.flash_attention_kernel.launches == before + 1
