@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; there is no try/except around them):
    3.35 TB/s, FLOP over the dtype's peak, exp2 over the special-function
    rate; the largest binds). Flash attention runs at the UNet's and the
    encoder's widths at 60 s and 6 min (3600 and 21600 frames), ragged at
-   2100, and with lengths [384, 200, 0].
+   2100, and with lengths [384, 200, 0]. The masked GroupNorm (length-
+   bucketed mode) runs at the UNet's eval-batch and 60-s bucketed shapes,
+   at the encoder's conv_0 shapes of the eval batch and of a 60-s clip,
+   and ragged; no single PyTorch call computes it, so it has no library
+   time.
 3. One request through the real CLI ``main(argv)``: a synthetic 10-s WAV
    (600 frames), 1000 DDIM steps, CFG 2.0, float32, random weights from
    seed 0. The CSV must hold 600 rows under the 32 ARKit names, finite and
@@ -50,6 +54,27 @@ Phases (any failure exits non-zero; there is no try/except around them):
    the audio embedding and one CFG-folded denoiser call at t = 999, on
    the card (flash kernel) and on the CPU (its plain version), same
    weights and latents: max |card − CPU| ≤ 1e-4 · max |CPU| for each.
+10. The eval-generation CLI ``said_tpu_torch.cli.test_inference.main`` on a
+    synthetic test split: 2 persons × 2 sentences of 2.6, 3.4, 4.3 and
+    5.1 s (156, 204, 258 and 306 frames; bucket 256, so 256 or 512
+    frames). First ``--num_repeats 8 --batch_size 8``, 1000 DDIM steps,
+    CFG 2.0, f32: 32 CSVs of the clips' row counts in [0, 1], and launch
+    counts over the 4 calls of exactly 4 × (masked GroupNorm 15·1000+1,
+    LayerNorm 12·1000+26, GEGLU 4·1000, conv 6, GroupNorm 0, flash 0).
+    Then ``--mixed_batching --batch_size 12 --num_steps 100``: 3 batches,
+    the first holding two clips, 32 CSVs again.
+11. Mixed lengths on the card: 3 rows of 2.0, 3.3 and 4.3 s in one
+    bucketed batch (bucket 256), injected latents, 20 DDIM steps. Each
+    row's real frames against its own unbucketed run on the card, and the
+    batch on the card against the same batch on the CPU: coefficient MAE
+    ≤ 1e-4 and max ≤ 1e-3, with a denoiser output std > 1e-3.
+12. A bucketed 60-s request through the CLI (3600 frames in a 3840-frame
+    bucket, ``--solver dpmpp_2m --num_steps 25 --length_bucket 256``):
+    3600 rows in [0, 1]; every flash launch (4·25 + 12) takes lengths;
+    masked GroupNorm 15·25+1, GroupNorm 0. Then, with injected latents,
+    the audio embedding and one CFG-folded denoiser call at t = 999,
+    bucketed against unbucketed on the card, on the real frames: within
+    1e-4 of max |unbucketed|.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -75,12 +100,14 @@ sys.path.insert(0, REPO)
 
 from said_tpu_torch import _build  # noqa: E402
 from said_tpu_torch.cli import inference as cli  # noqa: E402
+from said_tpu_torch.cli import test_inference as eval_cli  # noqa: E402
 from said_tpu_torch.cli._common import (  # noqa: E402
     ARKIT_BLENDSHAPES,
     build_said_model,
     configure_precision,
     random_init_,
 )
+from said_tpu_torch.data.blendvoca import PERSON_IDS_TEST  # noqa: E402
 from said_tpu_torch.models.said import SAIDPipeline, process_audio  # noqa: E402
 from said_tpu_torch.ops import attention, conv, ffn, norms  # noqa: E402
 
@@ -92,7 +119,8 @@ BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # CPU twins; a bf16 fault outside the kernels read 1.3e-1 on the CPU
 BF16_BOUND = {"audio embedding": 5e-2, "denoiser output": 3e-2}
 # card (kernels) against CPU (plain versions) at 2400 frames (phase 9),
-# relative to max |CPU|
+# and bucketed against unbucketed at 3600 frames (phase 12), relative to
+# max |reference|
 LONG_BOUND = 1e-4
 SR, FPS = 16000, 60
 # the card's peaks (NVIDIA's H100 SXM data sheet; the special-function
@@ -104,6 +132,8 @@ EXP2_PER_S = 3.9e12
 KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file:line, function)
     "group_norm": (norms.group_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
                    "said_tpu/ops/pallas_norms.py:79", "group_norm_pallas"),
+    "group_norm_masked": (norms.group_norm_masked_kernel, "triton", "said_tpu_torch/ops/norms.py",
+                          "said_tpu/ops/pallas_norms.py:133", "group_norm_masked_pallas"),
     "layer_norm": (norms.layer_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
                    "said_tpu/ops/pallas_norms.py:441", "layer_norm_pallas"),
     "geglu_ffn": (ffn.geglu_ffn_kernel, "cuda", "said_tpu_torch/csrc/geglu_ffn.cu",
@@ -115,6 +145,7 @@ KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file
 }
 ALSO_REPLACES = {
     "group_norm": "said_tpu/ops/pallas_norms.py:249 (group_norm_pallas_blocked)",
+    "group_norm_masked": "said_tpu/ops/pallas_norms.py:338 (group_norm_masked_pallas_blocked)",
     "flash_attention": "said_tpu/ops/pallas_attention.py:322 (_flash_tpu_packed_blocked)",
 }
 
@@ -191,6 +222,25 @@ def kernel_cases():
                     x.transpose(1, 2), g, w, b, eps)
             cases.append(("group_norm", f"{tag} {shape} G={g} eps={eps} {act}", dt, fns,
                           {"bytes": 2 * n * isz + 8 * c, "flop": 10 * n}, i == 1 and tag == "f32"))
+        # the UNet at the eval batch (CFG-doubled) and at a bucketed 60-s
+        # clip; the encoder's conv_0 at the eval batch and a 60-s clip
+        gnm = [((2, 512, 192), 32, 1e-5, "silu", [430, 258]),
+               ((16, 512, 192), 32, 1e-5, "silu", [156, 204, 258, 306] * 4),
+               ((2, 3840, 192), 32, 1e-6, "none", [3600, 3600]),
+               ((8, 27305, 512), 512, 1e-5, "none", [13759] * 4 + [16319] * 4),
+               ((1, 204799, 512), 512, 1e-5, "none", [191999]),
+               ((3, 37, 192), 32, 1e-5, "silu", [37, 20, 1])]
+        for i, (shape, g, eps, act, lengths) in enumerate(gnm):
+            c, n = shape[-1], int(np.prod(shape))
+            x, w, b = randn(shape, 4, dt, 2.0, 30.0), randn((c,), 5), randn((c,), 6)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            fns = {"kernel": lambda x=x, g=g, w=w, b=b, lens=lens, eps=eps, act=act:
+                   norms.group_norm_masked_kernel(x, g, w, b, lens, eps, act),
+                   "plain": lambda x=x, g=g, w=w, b=b, lens=lens, eps=eps, act=act:
+                   norms.group_norm_masked_plain(x, g, w, b, lens, eps, act)}
+            label = f"{tag} {shape} G={g} eps={eps} {act} lengths {sorted(set(lengths))}"
+            cases.append(("group_norm_masked", label, dt, fns,
+                          {"bytes": 2 * n * isz + 8 * c + 4 * shape[0], "flop": 10 * n}, i == 1 and tag == "f32"))
         for i, shape in enumerate([(2, 600, 192), (1, 600, 192), (2, 37, 192)]):
             x = randn(shape, 7, dt)
             w1, b1 = randn((1536, 192), 8, dt, 0.05), randn((1536,), 9, scale=0.1)
@@ -290,14 +340,27 @@ def read_csv(path):
     return rows[0], np.asarray(rows[1:], dtype=np.float64)
 
 
-def expected_launches(steps):
-    """Kernel launches of one CFG request of ``steps`` denoise steps at
-    full width whose clip is longer than the dense limit: per step 15
-    GroupNorms, 12 LayerNorms, 4 GEGLUs, 4 UNet self-attentions; per clip
-    the encoder's conv_0 GroupNorm, 26 LayerNorms, 6 strided convs and 12
-    self-attentions."""
-    return {"group_norm": 15 * steps + 1, "layer_norm": 12 * steps + 26,
-            "geglu_ffn": 4 * steps, "strided_conv_gelu": 6, "flash_attention": 4 * steps + 12}
+def expected_launches(steps, bucketed=False, calls=1):
+    """Kernel launches of ``calls`` CFG pipeline calls of ``steps`` denoise
+    steps at full width whose clip is longer than the dense limit: per
+    step 15 GroupNorms, 12 LayerNorms, 4 GEGLUs, 4 UNet self-attentions;
+    per call the encoder's conv_0 GroupNorm, 26 LayerNorms, 6 strided
+    convs and 12 self-attentions. In bucketed mode every GroupNorm is the
+    masked one."""
+    norm = 15 * steps + 1
+    per_call = {"group_norm": 0 if bucketed else norm, "group_norm_masked": norm if bucketed else 0,
+                "layer_norm": 12 * steps + 26, "geglu_ffn": 4 * steps, "strided_conv_gelu": 6,
+                "flash_attention": 4 * steps + 12}
+    return {name: calls * n for name, n in per_call.items()}
+
+
+def zero_launches():
+    for fn, *_ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
 def cli_request(record, gpu_line, phase, seconds, steps, flags, expected, seed):
@@ -308,15 +371,14 @@ def cli_request(record, gpu_line, phase, seconds, steps, flags, expected, seed):
           f"{' '.join(flags) or 'DDIM'}, CFG 2.0, f32) ==")
     wav, out = os.path.join(WORK, f"clip{seconds:g}s.wav"), os.path.join(WORK, f"clip{seconds:g}s.csv")
     write_wav(wav, seconds, seed=seed)
-    for fn, *_ in KERNELS.values():
-        fn.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cli.main(["--device", "cuda", "--num_steps", str(steps), "--guidance_scale", "2.0", "--dtype", "float32",
               "--seed", "0", "--weights_path", "", "--audio_path", wav, "--output_path", out, *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+    launches = read_launches()
     header, coeffs = read_csv(out)
     print(f"request wall time {wall:.2f} s (model build + random init + prepare + {steps} steps + CSV) on {gpu_line}")
     print(f"launch counts in the request: {launches}")
@@ -335,7 +397,7 @@ def phase_request(record, gpu_line):
     expected = dict(expected_launches(1000), flash_attention=0)  # 600 frames: dense self-attention
     cli_request(record, gpu_line, 3, 10.0, 1000, [], expected, seed=0)
     for name in KERNELS:
-        if name != "flash_attention":
+        if name not in ("flash_attention", "group_norm_masked"):
             record[name]["launches"] = record[name]["launches_by_request"]["10s 1000 steps"]
 
 
@@ -376,6 +438,148 @@ def phase_long_card_vs_cpu():
         print(f"{name:16s} card vs CPU: max {rel:.3e} relative to max |CPU| (bound {LONG_BOUND:.0e}), CPU std {std:.4f}")
         check(got.shape == want.shape and std > 1e-3, f"{name}: shapes differ or the output is degenerate")
         check(np.isfinite(rel) and rel <= LONG_BOUND, f"card vs CPU {name} at {frames} frames: {rel:.3e} > {LONG_BOUND}")
+
+
+EVAL_CLIPS_S = ((2.6, 3.4), (4.3, 5.1))  # per test person: sentence01, sentence02
+
+
+def eval_run(record, gpu_line, label, flags, expected, split, out_dir):
+    """One run of the eval-generation CLI on the card; the launch
+    counters are zeroed just before it and read just after. Returns the
+    CSVs written."""
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = eval_cli.main(["--device", "cuda", "--guidance_scale", "2.0", "--dtype", "float32", "--seed", "0",
+                             "--weights_path", "", "--audio_dir", split, "--output_dir", out_dir, *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"{label}: wall time {wall:.2f} s (model build + random init + every call + CSVs) on {gpu_line}")
+    print(f"launch counts in the run: {launches}")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    for name, n in launches.items():
+        record[name].setdefault("launches_by_request", {})[label] = n
+    check(len(written) == len(set(written)) == 32, f"{len(written)} CSVs written, expected 32 distinct")
+    for pid, seconds in zip(PERSON_IDS_TEST, EVAL_CLIPS_S):
+        for sid, sec in enumerate(seconds, start=1):
+            for k in range(8):
+                header, coeffs = read_csv(os.path.join(out_dir, pid, f"sentence{sid:02}-{k}.csv"))
+                rows = int(int(sec * SR) / SR * FPS)  # the CLI's window of the clip write_wav wrote
+                check(tuple(header) == ARKIT_BLENDSHAPES and coeffs.shape == (rows, 32),
+                      f"{pid}/sentence{sid:02}-{k}.csv holds {coeffs.shape}, expected ({rows}, 32)")
+                check(np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0,
+                      f"{pid}/sentence{sid:02}-{k}.csv: values not finite in [0, 1]")
+    return wall
+
+
+def phase_eval_cli(record, gpu_line):
+    print("\n== phase 10: the eval-generation CLI on a synthetic test split (2 persons x 2 sentences of "
+          "2.6, 3.4, 4.3 and 5.1 s; bucket 256; CFG 2.0, f32) ==")
+    split = os.path.join(WORK, "eval_split")
+    for pid, seconds in zip(PERSON_IDS_TEST, EVAL_CLIPS_S):
+        os.makedirs(os.path.join(split, pid), exist_ok=True)
+        for sid, sec in enumerate(seconds, start=1):
+            write_wav(os.path.join(split, pid, f"sentence{sid:02}.wav"), sec, seed=10 * sid + len(pid))
+    # one call per clip (8 repeats in one batch of 8): one length per call
+    label = "eval 4 clips x 8, 1000 steps"
+    eval_run(record, gpu_line, label, ["--num_repeats", "8", "--batch_size", "8", "--num_steps", "1000"],
+             expected_launches(1000, bucketed=True, calls=4) | {"flash_attention": 0},
+             split, os.path.join(WORK, "eval_out"))
+    record["group_norm_masked"]["launches"] = record["group_norm_masked"]["launches_by_request"][label]
+    # 32 (clip, repeat) tasks sorted by length in batches of 12: 8 x 156 +
+    # 4 x 204 frames, then 4 x 204 + 8 x 258, then 8 x 306 — 3 calls, the
+    # first two holding two clips each, with per-row lengths
+    eval_run(record, gpu_line, "eval mixed batching, 3 batches, 100 steps",
+             ["--num_repeats", "8", "--batch_size", "12", "--num_steps", "100", "--mixed_batching"],
+             expected_launches(100, bucketed=True, calls=3) | {"flash_attention": 0},
+             split, os.path.join(WORK, "eval_mixed_out"))
+
+
+def phase_mixed_lengths():
+    print("\n== phase 11: mixed lengths (2.0, 3.3, 4.3 s in one bucketed batch, bucket 256, 20 steps): "
+          "each row against its own unbucketed run, and card against CPU ==")
+    configure_precision("float32")
+    cpu_model = random_init_(build_said_model(), seed=0).eval()
+    card = SAIDPipeline(copy.deepcopy(cpu_model).to(DEV))
+    rng = np.random.default_rng(6)
+    waves = [process_audio(0.1 * rng.standard_normal(int(sec * SR)).astype(np.float32))[0] for sec in (2.0, 3.3, 4.3)]
+    lens = np.array([len(w) for w in waves])
+    frames = [int(n / SR * FPS) for n in lens]
+    batch = np.zeros((3, lens.max()), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, : len(w)] = w
+    latents = rng.standard_normal((3, max(frames), 32)).astype(np.float32)
+    kw = dict(num_inference_steps=20, guidance_scale=2.0)
+    mixed = dict(latents=latents, length_bucket=256, waveform_lengths=lens, **kw)
+    t0 = time.perf_counter()
+    res_card = card.inference(batch, **mixed).result
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_cpu = SAIDPipeline(cpu_model).inference(batch, **mixed).result
+    t_cpu = time.perf_counter() - t0
+    print(f"mixed batch {res_card.shape}: card {t_card:.1f} s, cpu {t_cpu:.1f} s")
+    with torch.no_grad():
+        t_a_pad = max(-(-res_card.shape[1] * SR // FPS), lens.max())  # the pipeline's padded waveform
+        wave_t = torch.from_numpy(np.pad(batch, ((0, 0), (0, t_a_pad - lens.max())))).to(DEV)
+        kv, table = card.prepare(wave_t, res_card.shape[1], True, lens, np.array(frames))
+        lat = torch.from_numpy(np.pad(latents, ((0, 0), (0, res_card.shape[1] - latents.shape[1]), (0, 0)))).to(DEV)
+        seq = torch.tensor(frames * 2, dtype=torch.int32, device=DEV)
+        eps = card.model.unet(torch.cat([lat, lat]), kv_caches=kv, emb=table[999], seq_len_real=seq)
+    eps_std = torch.cat([eps[i, :n] for i, n in enumerate(frames * 2)]).std().item()
+    print(f"bucketed denoiser output std on the real frames {eps_std:.4f} (must be > 1e-3)")
+    check(eps_std > 1e-3, "denoiser output is degenerate; the comparisons would be vacuous")
+    for i, n in enumerate(frames):
+        single = card.inference(waves[i][None], latents=latents[i : i + 1, :n], **kw).result[0]
+        for name, want in (("own unbucketed run", single), ("CPU", res_cpu[i, :n])):
+            diff = np.abs(res_card[i, :n] - want)
+            print(f"row {i} ({n} frames) against {name}: MAE {diff.mean():.3e} (bound 1e-4) "
+                  f"max {diff.max():.3e} (bound 1e-3)")
+            check(diff.mean() <= 1e-4 and diff.max() <= 1e-3, f"row {i} against {name}: MAE {diff.mean():.3e} "
+                  f"/ max {diff.max():.3e}")
+
+
+def phase_bucketed_long(record, gpu_line):
+    # count the flash launches that pass a lengths pointer, at the C entry
+    # point the kernel's wrapper calls
+    lib = _build.library()
+    entry, seen = lib.said_flash_attention, []
+
+    def spy(q, k, v, out, lengths, *rest):
+        seen.append(lengths is not None)
+        return entry(q, k, v, out, lengths, *rest)
+
+    lib.said_flash_attention = spy
+    cli_request(record, gpu_line, 12, 60.0, 25, ["--solver", "dpmpp_2m", "--length_bucket", "256"],
+                expected_launches(25, bucketed=True), seed=5)
+    lib.said_flash_attention = entry
+    check(len(seen) == 4 * 25 + 12 and all(seen), f"{sum(seen)} of {len(seen)} flash launches took lengths")
+    print(f"every one of the {len(seen)} flash launches took lengths")
+
+    print("bucketed (3840 frames, 3600 real) against unbucketed (3600), same weights and latents:")
+    configure_precision("float32")
+    model = random_init_(build_said_model(), seed=0).to(DEV).eval()
+    pipe = SAIDPipeline(model)
+    rng = np.random.default_rng(7)
+    wave = process_audio(0.1 * rng.standard_normal(60 * SR).astype(np.float32))
+    latents = rng.standard_normal((1, 3600, 32)).astype(np.float32)
+    out = {}
+    with torch.no_grad():
+        for name, t_a, frames, real in (("unbucketed", 60 * SR, 3600, None), ("bucketed", 1024000, 3840, 3600)):
+            wave_t = torch.from_numpy(np.pad(wave, ((0, 0), (0, t_a - wave.shape[1])))).to(DEV)
+            lat = torch.from_numpy(np.pad(latents, ((0, 0), (0, frames - 3600), (0, 0)))).to(DEV)
+            lengths = (None, None) if real is None else (60 * SR, real)
+            emb = model.get_audio_embedding(wave_t, frames, *lengths)
+            kv, table = pipe.prepare(wave_t, frames, True, *lengths)
+            eps = model.unet(lat, kv_caches=kv, emb=table[999], cfg_fold=True, seq_len_real=real)
+            out[name] = {"audio embedding": emb[:, :3600].cpu(), "denoiser output": eps[:, :3600].cpu()}
+    for name in ("audio embedding", "denoiser output"):
+        want, got = out["unbucketed"][name], out["bucketed"][name]
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"{name:16s} bucketed vs unbucketed: max {rel:.3e} relative to max |unbucketed| "
+              f"(bound {LONG_BOUND:.0e}), std {want.std().item():.4f}")
+        check(want.std().item() > 1e-3, f"{name}: the output is degenerate")
+        check(np.isfinite(rel) and rel <= LONG_BOUND, f"bucketed vs unbucketed {name}: {rel:.3e} > {LONG_BOUND}")
 
 
 def phase_card_vs_cpu():
@@ -463,6 +667,7 @@ def main():
     x, w, b = randn((2, 8, 192), 0), randn((192,), 0), randn((192,), 0)
     norms.layer_norm_kernel(x, w, b)
     norms.group_norm_kernel(x, 32, w, b)
+    norms.group_norm_masked_kernel(x, 32, w, b, torch.full((2,), 5, dtype=torch.int32, device=DEV))
     torch.cuda.synchronize()
     print(f"Triton compile of the norm kernels: {time.perf_counter() - t0:.1f} s")
 
@@ -478,6 +683,9 @@ def main():
     phase_bf16()
     phase_long_requests(record, gpu_line)
     phase_long_card_vs_cpu()
+    phase_eval_cli(record, gpu_line)
+    phase_mixed_lengths()
+    phase_bucketed_long(record, gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)

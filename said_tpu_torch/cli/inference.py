@@ -4,8 +4,10 @@ Flag-compatible with ``said_tpu/cli/inference.py`` (the reference's
 ``script/inference.py`` defaults: 1000 DDIM steps, guidance 2.0, eta 0,
 60 fps; ``--init_sample_path``/``--mask_path`` masked editing and
 intermediate dumps; ``--solver dpmpp_2m`` for DPM-Solver++(2M), e.g.
-with ``--num_steps 25``). Clips of any length run: self-attention over
-more than 2048 frames goes to the flash-attention kernel on the card.
+with ``--num_steps 25``; ``--length_bucket N`` pads the window to a
+multiple of N frames and runs length-bucketed mode). Clips of any length
+run: self-attention over more than 2048 frames goes to the flash-attention
+kernel on the card.
 ``--device`` defaults to ``cuda``. Unlike the JAX CLI's, whose path
 defaults point into ``../BlendVOCA``, every path default here lies in
 the working directory: ``--audio_path`` is required, and without
@@ -72,14 +74,14 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
                              "to 2048 frames, the flash kernel above) and the banded "
                              "cross-attention (numerically the masked dense form)")
     parser.add_argument("--seq_shards", type=int, default=0)
-    parser.add_argument("--length_bucket", type=int, default=0)
+    parser.add_argument("--length_bucket", type=int, default=0,
+                        help="pad the window to a multiple of this many frames (0: exact shape)")
     parser.add_argument("--streaming_window", type=int, default=0)
     parser.add_argument("--streaming_overlap", type=int, default=360)
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
-        (args.length_bucket > 0, "--length_bucket > 0", "ROADMAP Queue 1 item 8 (bucketed batches)"),
         (args.streaming_window > 0, "--streaming_window > 0", "ROADMAP Queue 1 item 9 (streaming)"),
         (args.seq_shards > 1, "--seq_shards > 1", "ROADMAP Queue 1 item 13 (multi-GPU)"),
         (args.attn_impl == "flash_sp", "--attn_impl flash_sp",
@@ -130,6 +132,7 @@ def main(argv=None) -> np.ndarray:
         fps=args.fps,
         generator=torch.Generator(device=device).manual_seed(args.seed),
         save_intermediate=args.save_intermediate,
+        length_bucket=args.length_bucket,
     )
 
     result = output.result[0, :window_len]

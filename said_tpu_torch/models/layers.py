@@ -10,13 +10,13 @@ layer casts or re-lays out a weight on every call.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from said_tpu_torch.ops.norms import group_norm, layer_norm
+from said_tpu_torch.ops.norms import group_norm, group_norm_masked, layer_norm
 
 
 class Derived:
@@ -37,6 +37,42 @@ class Derived:
                 hit = (key, self.fn(param).to(dtype).contiguous())
             self._cache[dtype] = hit
         return hit[1]
+
+
+class Frames:
+    """The real frames of a padded (B, T, ·) activation, for bucketed and
+    mixed-length batches: ``real`` is one length for the whole batch (an
+    int) or one per row ((B,) numpy array or int tensor).
+
+    ``lengths`` is the (B,) int32 tensor on the device that the masked
+    kernels take (for one length, ``batch`` rows of it; ``lens(b)`` gives
+    the first b); ``zero(v)`` multiplies v by the 0/1 frame mask, in the
+    compute dtype, as the JAX package zeroes pads. Building one uploads a
+    per-row numpy array once; an int or a device tensor needs no copy.
+    """
+
+    def __init__(self, real, batch: int, t: int, device: torch.device, dtype: torch.dtype):
+        self.real = real
+        frame = torch.arange(t, device=device)
+        if getattr(real, "ndim", 0) == 1:
+            self.lengths = torch.as_tensor(real, device=device).to(torch.int32).contiguous()
+            mask = frame[None, :] < self.lengths[:, None]
+        else:
+            n = int(real)
+            self.lengths = torch.full((batch,), n, dtype=torch.int32, device=device)
+            mask = (frame < n)[None]
+        self.mask = mask[:, :, None].to(dtype)
+
+    def lens(self, b: int) -> torch.Tensor:
+        return self.lengths[:b]
+
+    def zero(self, v: torch.Tensor) -> torch.Tensor:
+        return v * self.mask
+
+    def host(self):
+        """The real length(s) as an int or a numpy array."""
+        real = self.real
+        return real.cpu().numpy() if isinstance(real, torch.Tensor) else real
 
 
 class Dense(nn.Linear):
@@ -88,7 +124,8 @@ class Conv1dSame(nn.Module):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics over (B, T, C), optional fused SiLU
-    (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router."""
+    (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router, or
+    the masked one when (B,) int32 real ``lengths`` are given."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, act: str = "none"):
         super().__init__()
@@ -96,8 +133,10 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act)
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if lengths is None:
+            return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act)
+        return group_norm_masked(x, self.num_groups, self.weight, self.bias, lengths, self.eps, self.act)
 
 
 class LayerNormF32(nn.Module):

@@ -10,9 +10,11 @@ two stages:
 - **denoise**, a host loop of DDIM or DPM-Solver++(2M) steps, each one
   denoiser call with the CFG shared-prefix fold.
 
-Parameter names are the reference's (``denoiser.model.…``,
-``audio_encoder.…``, ``null_cond_emb``). Not ported yet: length
-bucketing and mixed-length batches, sequence-parallel mode and
+With ``length_bucket`` the clip is padded to a multiple of the bucket
+and runs in length-bucketed mode; ``waveform_lengths`` adds mixed-length
+batches (rows of different real lengths). Parameter names are the
+reference's (``denoiser.model.…``, ``audio_encoder.…``,
+``null_cond_emb``). Not ported yet: sequence-parallel mode and
 streaming; the TPU-only chunked denoise dispatch is not needed here.
 """
 
@@ -102,9 +104,12 @@ class SAID(nn.Module):
         """Predict noise: (B, T, C), (B,), (B, S, E) → (B, T, C)."""
         return self.unet(noisy_samples, timesteps, audio_embedding, **kwargs)
 
-    def get_audio_embedding(self, waveform: torch.Tensor, num_frames: Optional[int]) -> torch.Tensor:
-        """(B, T_a) processed waveform → (B, num_frames, E) embedding."""
-        feats = self.audio_encoder(waveform, num_frames)
+    def get_audio_embedding(self, waveform: torch.Tensor, num_frames: Optional[int], input_length=None,
+                            num_frames_real=None) -> torch.Tensor:
+        """(B, T_a) processed waveform → (B, num_frames, E) embedding; in
+        bucketed mode ``input_length``/``num_frames_real`` are the real
+        sample and frame counts (ints or (B,) numpy lengths)."""
+        feats = self.audio_encoder(waveform, num_frames, input_length, num_frames_real)
         if self.audio_proj_layer is not None:
             feats = self.audio_proj_layer(feats)
         return feats
@@ -125,6 +130,14 @@ def process_audio(waveform: np.ndarray) -> np.ndarray:
     return (x - mean) / np.sqrt(var + 1e-7)
 
 
+def _denoise_lengths(window_real, do_cfg: bool):
+    """Real frames per denoiser row: per-row lengths are tiled for the
+    CFG-doubled batch (uncond rows first)."""
+    if do_cfg and np.ndim(window_real) == 1:
+        return np.concatenate([window_real, window_real])
+    return window_real
+
+
 class SAIDPipeline:
     """Runs inference on the host side: owns the model and the schedule."""
 
@@ -141,17 +154,22 @@ class SAIDPipeline:
 
     @torch.no_grad()
     def prepare(
-        self, waveform: torch.Tensor, window_size: int, do_cfg: bool
+        self, waveform: torch.Tensor, window_size: int, do_cfg: bool, input_length=None, window_real=None
     ) -> Tuple[Dict[str, List[KVCache]], torch.Tensor]:
         """The loop-invariant stage: audio encoder, null embedding, banded
-        K/V caches (CFG-doubled, uncond first) and the timestep table."""
+        K/V caches (CFG-doubled, uncond first) and the timestep table.
+        Bucketed mode: ``input_length`` and ``window_real``, the real
+        sample and frame counts (ints or (B,) numpy lengths)."""
         model = self.model
-        audio_emb = model.get_audio_embedding(waveform, window_size)
+        if (input_length is None) != (window_real is None):
+            raise ValueError("bucketed mode needs both input_length and window_real")
+        audio_emb = model.get_audio_embedding(waveform, window_size, input_length, window_real)
         context = audio_emb
         if do_cfg:
             uncond = model.null_embedding(audio_emb.shape[0], audio_emb.shape[1])
             context = torch.cat([uncond, audio_emb])
-        kv_caches = build_kv_caches(model.unet, context, window_size)
+        seq = None if window_real is None else _denoise_lengths(window_real, do_cfg)
+        kv_caches = build_kv_caches(model.unet, context, window_size, seq_len_real=seq)
         emb_table = time_embed_table(model.unet, np.arange(model.diffusion_steps))
         return kv_caches, emb_table
 
@@ -173,6 +191,8 @@ class SAIDPipeline:
         eta_noise: Optional[np.ndarray] = None,
         edit_noise: Optional[np.ndarray] = None,
         save_intermediate: bool = False,
+        length_bucket: int = 0,
+        waveform_lengths: Optional[np.ndarray] = None,
     ) -> SAIDInferenceOutput:
         """Full inference (reference ``SAID.inference`` semantics).
 
@@ -186,17 +206,54 @@ class SAIDPipeline:
         ``eta > 0``; ``edit_noise`` (B, T, C) for the editing path. With
         ``init_samples`` and no ``latents``, the inits are the latents.
         ``mask`` (1 = keep the init) applies with ``init_samples``.
+
+        ``length_bucket`` > 0: the window is padded to the next multiple of
+        ``length_bucket`` frames and the waveform to match, and the clip
+        runs in length-bucketed mode: its real frames equal an unpadded
+        run, and the padded tail of the result is garbage (slice to the
+        real window, as the CLIs do). Injected arrays are zero-padded to
+        the padded window; drawn latents are drawn at its size.
+        ``waveform_lengths`` (with ``length_bucket``): the real sample count
+        of each row of ``waveform_processed``, a mixed-length batch; each
+        row's real frames equal its own unpadded run.
         """
         dev = self.device
-        wave = torch.as_tensor(np.array(waveform_processed, np.float32), device=dev)
-        if wave.ndim == 1:
-            wave = wave[None]
-        b, t_a = wave.shape
+        wave_np = np.array(waveform_processed, np.float32)
+        if wave_np.ndim == 1:
+            wave_np = wave_np[None]
+        b, t_a = wave_np.shape
         window_size = int(t_a / self.sampling_rate * fps)
         c = self.model.in_channels
 
+        dynamic = length_bucket > 0
+        window_real, t_a_real = window_size, t_a
+        if waveform_lengths is not None:
+            if not dynamic:
+                raise ValueError("waveform_lengths requires length_bucket > 0")
+            t_a_real = np.asarray(waveform_lengths, np.int64)
+            if t_a_real.shape != (b,) or (t_a_real > t_a).any():
+                raise ValueError(f"waveform_lengths must be ({b},) sample counts of at most {t_a}")
+            window_real = (t_a_real / self.sampling_rate * fps).astype(np.int64)
+            window_size = int(window_real.max())
+        if dynamic:
+            # the host checks what the kernels never read back: every
+            # row keeps at least one real frame in every layer
+            enc_real = self.model.audio_config.feature_extract_output_length(np.min(t_a_real))
+            if np.min(window_real) < 1 or enc_real < 1:
+                raise ValueError("every row needs at least one real frame in the encoder and the window")
+            window_pad = int(np.ceil(window_size / length_bucket) * length_bucket)
+            t_a_pad = max(int(np.ceil(window_pad * self.sampling_rate / fps)), t_a)
+            wave_np = np.pad(wave_np, ((0, 0), (0, t_a_pad - t_a)))
+            window_size, t_a = window_pad, t_a_pad
+        wave = torch.as_tensor(wave_np, device=dev)
+
         def on_dev(a):
-            return None if a is None else torch.as_tensor(np.array(a, np.float32), device=dev)
+            if a is None:
+                return None
+            a = np.array(a, np.float32)
+            if dynamic and a.shape[-2] < window_size:  # zero-pad the frame axis
+                a = np.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, window_size - a.shape[-2]), (0, 0)])
+            return torch.as_tensor(a, device=dev)
 
         if latents is None:
             if init_samples is None:
@@ -214,11 +271,22 @@ class SAIDPipeline:
             eta=eta,
             solver=solver,
         )
-        kv_caches, emb_table = self.prepare(wave, window_size, config.do_cfg)
+        kv_caches, emb_table = self.prepare(
+            wave, window_size, config.do_cfg,
+            t_a_real if dynamic else None, window_real if dynamic else None,
+        )
         unet = self.model.unet
+        seq = None
+        if dynamic:
+            seq = _denoise_lengths(window_real, config.do_cfg)
+            # per-row lengths are uploaded once, here, for every step
+            seq = torch.as_tensor(seq, dtype=torch.int32, device=dev) if np.ndim(seq) else int(seq)
+        # the CFG fold takes one length for the batch; per-row lengths
+        # run the unfolded path (their masks are per CFG row)
+        fold = config.do_cfg and not isinstance(seq, torch.Tensor)
 
         def denoise_fn(x, t):
-            return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=config.do_cfg)
+            return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=fold, seq_len_real=seq)
 
         result, interms = sample(
             self.schedule,
@@ -229,7 +297,7 @@ class SAIDPipeline:
             mask=on_dev(mask),
             latent_scale=self.model.latent_scale,
             save_intermediate=save_intermediate,
-            cfg_folded=config.do_cfg,
+            cfg_folded=fold,
             eta_noise=on_dev(eta_noise),
             edit_noise=on_dev(edit_noise),
             generator=generator,

@@ -11,8 +11,12 @@ names (``input_blocks.1.0.in_layers.0.weight``, …), so a reference
 two parameterised ones, an ``nn.Identity`` keeps the index: the SiLU is
 fused into the GroupNorm kernel and sampling runs no dropout.
 
-Not ported yet: length-bucketed mode (``seq_len_real`` and the masked
-norms), remat, and training-mode dropout.
+Length-bucketed and mixed-length batches (``seq_len_real``): every
+GroupNorm is the masked one, pads are zeroed before every k=3 conv and
+before the output conv, self-attention masks keys past each row's
+length, and the cross-attention band is the dynamic one, so the real
+frames equal an unpadded run. Not ported yet: remat and training-mode
+dropout.
 """
 
 from __future__ import annotations
@@ -25,10 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from said_tpu_torch.models.layers import Conv1dSame, Dense, GroupNorm32, LayerNormF32
+from said_tpu_torch.models.layers import Conv1dSame, Dense, Frames, GroupNorm32, LayerNormF32
 from said_tpu_torch.ops.attention import banded_attention_cached, self_attention
 from said_tpu_torch.ops.ffn import geglu_ffn
-from said_tpu_torch.ops.masks import band_gather_indices
+from said_tpu_torch.ops.masks import alignment_band_dynamic, band_gather_indices
 
 KVCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -65,11 +69,15 @@ class ResBlock1D(nn.Module):
             Conv1dSame(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers[2](self.in_layers[0](x))
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: Optional[Frames] = None) -> torch.Tensor:
+        lens = None if frames is None else frames.lens(x.shape[0])
+        zero = (lambda v: v) if frames is None else frames.zero
+        # SAME convs mix neighbours: pads must hold the zero an unpadded
+        # run's boundary padding supplies
+        h = self.in_layers[2](zero(self.in_layers[0](x, lens)))
         e = self.emb_layers[1](F.silu(emb))
         h = h + e[:, None, :].to(h.dtype)
-        h = self.out_layers[3](self.out_layers[0](h))
+        h = self.out_layers[3](zero(self.out_layers[0](h, lens)))
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip + h
 
@@ -92,30 +100,43 @@ class CrossAttention(nn.Module):
         x: torch.Tensor,
         context: Optional[torch.Tensor] = None,
         kv_cache: Optional[KVCache] = None,
+        frames: Optional[Frames] = None,
     ) -> torch.Tensor:
         q = self.to_q(x)
         if kv_cache is not None:
             out = banded_attention_cached(q, *kv_cache, self.heads)
         elif context is None:
-            out = self_attention(q, self.to_k(x), self.to_v(x), self.heads)
+            lens = None if frames is None else frames.lens(x.shape[0])
+            out = self_attention(q, self.to_k(x), self.to_v(x), self.heads, lens)
         else:
             k, v = self.to_k(context), self.to_v(context)
-            out = banded_attention_cached(q, *band_gather(k, v, x.shape[1], self.heads), self.heads)
+            real = None if frames is None else frames.host()
+            idx, valid = band_tables(x.shape[1], k.shape[1], k.device, real=real)
+            out = banded_attention_cached(q, band_gather(k, idx, self.heads), band_gather(v, idx, self.heads),
+                                          valid, self.heads)
         return self.to_out[0](out)
 
 
-def band_gather(k: torch.Tensor, v: torch.Tensor, x_len: int, num_heads: int, align_pad: int = 1) -> KVCache:
-    """Gather the in-band keys/values of (B, S, H·D) projections for
-    ``x_len`` query frames → (k_win, v_win (B, T, W, H, D), valid (T, W))."""
+def band_tables(x_len: int, c_len: int, device: torch.device, align_pad: int = 1, real=None):
+    """The alignment band for ``x_len`` query frames over ``c_len`` context
+    positions, on ``device``: idx (T, W) int64 and valid (T, W) bool; with
+    ``real`` (bucketed mode: an int, or (B,) numpy lengths, the same for
+    queries and context) the dynamic band, (B, T, W) for per-row lengths."""
+    if real is None:
+        idx, valid, _ = band_gather_indices(x_len, c_len, align_pad)
+    else:
+        idx, valid = alignment_band_dynamic(x_len, c_len, real, real, align_pad)
+    return torch.from_numpy(idx.astype(np.int64)).to(device), torch.from_numpy(valid).to(device)
+
+
+def band_gather(k: torch.Tensor, idx: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Gather the in-band rows of a (B, S, H·D) projection → (B, T, W, H, D);
+    ``idx`` (T, W), or (B, T, W) per row."""
     b, s, inner = k.shape
-    idx, valid, _ = band_gather_indices(x_len, s, align_pad)
-    idx_t = torch.from_numpy(idx.astype(np.int64)).to(k.device)
-    shape = (b, s, num_heads, inner // num_heads)
-    return (
-        k.reshape(shape)[:, idx_t],
-        v.reshape(shape)[:, idx_t],
-        torch.from_numpy(valid).to(k.device),
-    )
+    k4 = k.reshape(b, s, num_heads, inner // num_heads)
+    if idx.ndim == 3:
+        return k4[torch.arange(b, device=k.device)[:, None, None], idx]
+    return k4[:, idx]
 
 
 class FeedForward(nn.Module):
@@ -151,13 +172,14 @@ class BasicTransformerBlock(nn.Module):
         context: Optional[torch.Tensor] = None,
         kv_cache: Optional[KVCache] = None,
         cfg_expand: bool = False,
+        frames: Optional[Frames] = None,
     ) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn1(self.norm1(x), frames=frames)
         if cfg_expand:
             # CFG shared-prefix fold: rows [0:B] pair with the uncond half
             # of the K/V cache, [B:2B] with the cond half
             x = torch.cat([x, x])
-        x = x + self.attn2(self.norm2(x), context=context, kv_cache=kv_cache)
+        x = x + self.attn2(self.norm2(x), context=context, kv_cache=kv_cache, frames=frames)
         return x + self.ff(self.norm3(x))
 
 
@@ -178,14 +200,16 @@ class SpatialTransformer(nn.Module):
         context: Optional[torch.Tensor] = None,
         kv_cache: Optional[Sequence[KVCache]] = None,
         cfg_expand: bool = False,
+        frames: Optional[Frames] = None,
     ) -> torch.Tensor:
-        h = self.norm(x)
+        h = self.norm(x, None if frames is None else frames.lens(x.shape[0]))
         for d, block in enumerate(self.transformer_blocks):
             h = block(
                 h,
                 context=context,
                 kv_cache=None if kv_cache is None else kv_cache[d],
                 cfg_expand=cfg_expand and d == 0,
+                frames=frames,
             )
         h = self.proj_out(h)
         if cfg_expand:
@@ -258,6 +282,7 @@ class UNet1DConditionModel(nn.Module):
         kv_caches: Optional[Dict[str, List[KVCache]]] = None,
         emb: Optional[torch.Tensor] = None,
         cfg_fold: bool = False,
+        seq_len_real=None,
     ) -> torch.Tensor:
         """Predict noise. sample (B, T, C_in); timesteps () or (B,);
         context (B, S, cross_attention_dim). Returns (B, T, C_out).
@@ -270,11 +295,22 @@ class UNet1DConditionModel(nn.Module):
         while ``kv_caches`` hold the CFG-doubled context (uncond first);
         everything up to the first cross-attention runs once at batch B
         and the batch doubles there. Returns (2B, T, C_out).
+
+        Length-bucketed mode: ``seq_len_real`` is how many of the T frames
+        are real, an int or (B,) lengths (numpy, or an int tensor on the
+        device, which is then not copied); the real frames equal an
+        unpadded run. The fold takes only an int.
         """
         if cfg_fold and kv_caches is None:
             raise ValueError("cfg_fold requires the kv-cache sampling fast path")
+        if cfg_fold and getattr(seq_len_real, "ndim", 0) != 0:
+            raise ValueError("cfg_fold supports only one seq_len_real for the batch "
+                             "(per-row lengths use the unfolded path)")
         dt = self.dtype
         b = sample.shape[0]
+        frames = None
+        if seq_len_real is not None:
+            frames = Frames(seq_len_real, 2 * b if cfg_fold else b, sample.shape[1], sample.device, dt)
         if emb is None:
             t = torch.atleast_1d(torch.as_tensor(timesteps, device=sample.device))
             if t.shape[0] == 1 and b > 1:
@@ -288,28 +324,34 @@ class UNet1DConditionModel(nn.Module):
 
         kv = kv_caches or {}
         x = sample.to(dt)
+        if frames is not None:
+            x = frames.zero(x)
         if context is not None:
             context = context.to(dt)
 
         h0 = self.input_blocks[0][0](x)
-        h1 = self.input_blocks[1][0](h0, emb)
-        h1 = self.input_blocks[1][1](h1, context, kv.get("input_attn"), cfg_expand=cfg_fold)
+        h1 = self.input_blocks[1][0](h0, emb, frames=frames)
+        h1 = self.input_blocks[1][1](h1, context, kv.get("input_attn"), cfg_expand=cfg_fold, frames=frames)
         if cfg_fold:
             emb = torch.cat([emb, emb])
             h0 = torch.cat([h0, h0])
 
-        hm = self.middle_block[0](h1, emb)
-        hm = self.middle_block[1](hm, context, kv.get("middle_attn"))
-        hm = self.middle_block[2](hm, emb)
+        hm = self.middle_block[0](h1, emb, frames=frames)
+        hm = self.middle_block[1](hm, context, kv.get("middle_attn"), frames=frames)
+        hm = self.middle_block[2](hm, emb, frames=frames)
 
         o = torch.cat([hm, h1], dim=-1)
-        o = self.output_blocks[0][0](o, emb)
-        o = self.output_blocks[0][1](o, context, kv.get("output_attn0"))
+        o = self.output_blocks[0][0](o, emb, frames=frames)
+        o = self.output_blocks[0][1](o, context, kv.get("output_attn0"), frames=frames)
         o = torch.cat([o, h0], dim=-1)
-        o = self.output_blocks[1][0](o, emb)
-        o = self.output_blocks[1][1](o, context, kv.get("output_attn1"))
+        o = self.output_blocks[1][0](o, emb, frames=frames)
+        o = self.output_blocks[1][1](o, context, kv.get("output_attn1"), frames=frames)
 
-        o = self.out[2](self.out[0](o))
+        if frames is None:
+            o = self.out[0](o)
+        else:
+            o = frames.zero(self.out[0](o, frames.lens(o.shape[0])))
+        o = self.out[2](o)
         return o.to(sample.dtype)
 
 
@@ -324,14 +366,20 @@ def build_kv_caches(
     context: torch.Tensor,
     x_len: int,
     align_pad: int = 1,
+    seq_len_real=None,
 ) -> Dict[str, List[KVCache]]:
     """Per-block banded K/V gathers for a fixed context (B, S, E):
-    ``{block_name: [(k_win, v_win, valid), ...per depth]}``."""
+    ``{block_name: [(k_win, v_win, valid), ...per depth]}``. With
+    ``seq_len_real`` (an int, or (B,) numpy lengths) the band is the
+    dynamic one of bucketed mode, gathered per row for (B,) lengths; its
+    tables are uploaded once for all blocks."""
     context = context.to(unet.dtype)
+    idx, valid = band_tables(x_len, context.shape[1], context.device, align_pad, seq_len_real)
     caches = {}
     for name, st in unet.spatial_transformers():
         caches[name] = [
-            band_gather(blk.attn2.to_k(context), blk.attn2.to_v(context), x_len, unet.num_heads, align_pad)
+            (band_gather(blk.attn2.to_k(context), idx, unet.num_heads),
+             band_gather(blk.attn2.to_v(context), idx, unet.num_heads), valid)
             for blk in st.transformer_blocks
         ]
     return caches

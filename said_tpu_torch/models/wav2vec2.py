@@ -9,26 +9,32 @@ transformer layers. Module and parameter names are the HF torch names
 (``feature_extractor.conv_layers.0.conv.weight``,
 ``encoder.layers.0.attention.q_proj.weight``, …).
 
-Kernels on this path: the per-channel GroupNorm of ``conv_0``, every
-LayerNorm, and the stride-2 conv+GELU of the norm-free k∈{2,3} layers
-(``conv_1`` … ``conv_6`` in wav2vec2-base). Not ported yet: spec-augment
-(``compute_time_mask_indices``, training only), layerdrop and dropout,
-length-bucketed mode, and the "layer" feature-extractor norm.
+Kernels on this path: the per-channel GroupNorm of ``conv_0`` (masked
+in length-bucketed mode), every LayerNorm, and the stride-2 conv+GELU of
+the norm-free k∈{2,3} layers (``conv_1`` … ``conv_6`` in
+wav2vec2-base). Length-bucketed mode (``input_length`` /
+``num_frames_real``) carries each conv layer's real length, zeroes pads
+after every layer, resamples with the dynamic interpolation and masks
+padded keys in every attention, so the real frames equal an unpadded
+run. Not ported yet: spec-augment (``compute_time_mask_indices``,
+training only), layerdrop and dropout, and the "layer"
+feature-extractor norm.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from said_tpu_torch.models.layers import Dense, Derived, GroupNorm32, LayerNormF32
+from said_tpu_torch.models.layers import Dense, Derived, Frames, GroupNorm32, LayerNormF32
 from said_tpu_torch.ops.attention import self_attention
 from said_tpu_torch.ops.conv import strided_conv_gelu
-from said_tpu_torch.ops.resample import linear_interp_time
+from said_tpu_torch.ops.resample import linear_interp_time, linear_interp_time_dynamic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +54,14 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     output_hidden_size: int = 768
+
+    def feature_extract_output_length(self, input_length):
+        """Output frame count of the conv stack for a waveform length (an
+        int or an integer numpy array)."""
+        length = input_length
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            length = (length - k) // s + 1
+        return length
 
     @classmethod
     def tiny(cls) -> "Wav2Vec2Config":
@@ -81,17 +95,21 @@ class _ConvLayer(nn.Module):
         )
         self._b = Derived()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: Optional[Frames] = None) -> torch.Tensor:
         dt = x.dtype
         if self.fused:
-            return strided_conv_gelu(x, self._w(self.conv.weight, dt))
-        # (B, T, C_in) -> (B, T', C_in, K) -> (B, T', C_in·K), the torch weight's order
-        cols = x.unfold(1, self.kernel, self.stride).reshape(x.shape[0], -1, x.shape[2] * self.kernel)
-        bias = None if self.conv.bias is None else self._b(self.conv.bias, dt)
-        h = F.linear(cols, self._w(self.conv.weight, dt), bias)
-        if self.layer_norm is not None:
-            h = self.layer_norm(h)
-        return F.gelu(h)
+            h = strided_conv_gelu(x, self._w(self.conv.weight, dt))
+        else:
+            # (B, T, C_in) -> (B, T', C_in, K) -> (B, T', C_in·K), the torch weight's order
+            cols = x.unfold(1, self.kernel, self.stride).reshape(x.shape[0], -1, x.shape[2] * self.kernel)
+            bias = None if self.conv.bias is None else self._b(self.conv.bias, dt)
+            h = F.linear(cols, self._w(self.conv.weight, dt), bias)
+            if self.layer_norm is not None:
+                h = self.layer_norm(h, None if frames is None else frames.lengths)
+            h = F.gelu(h)
+        # pads stay exactly zero, so the next VALID conv's real outputs
+        # read only real samples
+        return h if frames is None else frames.zero(h)
 
 
 class FeatureExtractor(nn.Module):
@@ -107,11 +125,19 @@ class FeatureExtractor(nn.Module):
             for i, (k, s) in enumerate(zip(config.conv_kernel, config.conv_stride))
         )
 
-    def forward(self, input_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, input_values: torch.Tensor, dtype: torch.dtype, input_length=None):
+        """Returns the features and, when ``input_length`` (real sample
+        count: an int or (B,) numpy lengths) is given, their real length."""
         x = input_values[:, :, None].to(dtype)
+        real = None if input_length is None else np.asarray(input_length, np.int64)
         for layer in self.conv_layers:
-            x = layer(x)
-        return x
+            frames = None
+            if real is not None:
+                real = (real - layer.kernel) // layer.stride + 1
+                t_out = (x.shape[1] - layer.kernel) // layer.stride + 1
+                frames = Frames(real, x.shape[0], t_out, x.device, dtype)
+            x = layer(x, frames)
+        return x, real
 
 
 class FeatureProjection(nn.Module):
@@ -166,8 +192,8 @@ class Attention(nn.Module):
         self.v_proj = Dense(hidden, hidden)
         self.out_proj = Dense(hidden, hidden)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.heads)
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.heads, lengths)
         return self.out_proj(out)
 
 
@@ -192,8 +218,8 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(h, config.intermediate_size)
         self.final_layer_norm = LayerNormF32(h, config.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layer_norm(x + self.attention(x))
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.layer_norm(x + self.attention(x, lengths))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
@@ -204,10 +230,14 @@ class Encoder(nn.Module):
         self.layer_norm = LayerNormF32(config.hidden_size, config.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_hidden_layers))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, frames: Optional[Frames] = None) -> torch.Tensor:
+        if frames is not None:
+            # the SAME-padded positional conv must see the zero boundary an
+            # unpadded run would
+            h = frames.zero(h)
         h = self.layer_norm(h + self.pos_conv_embed(h))
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h, None if frames is None else frames.lengths)
         return h
 
 
@@ -216,6 +246,11 @@ class Wav2Vec2Encoder(nn.Module):
 
     ``num_frames`` is the blendshape window size; ``None`` keeps the
     native ~50 Hz feature rate. ``dtype`` is the compute dtype.
+
+    Length-bucketed mode: ``input_length`` (real samples) and
+    ``num_frames_real`` (real frames), ints or (B,) numpy lengths within
+    the padded buffers; the first ``num_frames_real`` output frames of a
+    row equal its unpadded run.
     """
 
     def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config(), dtype: torch.dtype = torch.float32):
@@ -228,11 +263,27 @@ class Wav2Vec2Encoder(nn.Module):
         self.masked_spec_embed = nn.Parameter(torch.zeros(config.hidden_size))
         self.encoder = Encoder(config)
 
-    def extract_features(self, input_values: torch.Tensor, num_frames=None) -> torch.Tensor:
-        """Conv stack + align-corners interpolation to ``num_frames``."""
-        feats = self.feature_extractor(input_values, self.dtype)
-        return feats if num_frames is None else linear_interp_time(feats, num_frames)
+    def extract_features(self, input_values: torch.Tensor, num_frames=None, input_length=None,
+                         num_frames_real=None):
+        """Conv stack + align-corners interpolation to ``num_frames`` →
+        (features, their real frame count or None)."""
+        feats, feat_len = self.feature_extractor(input_values, self.dtype, input_length)
+        if num_frames is not None:
+            if input_length is None:
+                feats = linear_interp_time(feats, num_frames)
+            else:
+                feats = linear_interp_time_dynamic(feats, num_frames, feat_len, num_frames_real)
+                feat_len = num_frames_real
+        return feats, feat_len
 
-    def forward(self, input_values: torch.Tensor, num_frames=None) -> torch.Tensor:
-        feats = self.extract_features(input_values, num_frames)
-        return self.encoder(self.feature_projection(feats))
+    def encode_features(self, feats: torch.Tensor, real_frames=None) -> torch.Tensor:
+        """Feature projection + transformer encoder; ``real_frames`` (an int
+        or (B,) numpy lengths) in bucketed mode."""
+        h = self.feature_projection(feats)
+        frames = None if real_frames is None else Frames(real_frames, h.shape[0], h.shape[1], h.device, h.dtype)
+        return self.encoder(h, frames)
+
+    def forward(self, input_values: torch.Tensor, num_frames=None, input_length=None,
+                num_frames_real=None) -> torch.Tensor:
+        feats, real = self.extract_features(input_values, num_frames, input_length, num_frames_real)
+        return self.encode_features(feats, real)

@@ -6,8 +6,9 @@ pre-gathered keys, ``banded_attention_cached``, and the dense branch of
 ``flash_attention_flat`` / ``_flash_route``
 (said_tpu/ops/pallas_attention.py:746, :580), here ``self_attention``:
 
-- T and S ≤ ``DENSE_MAX`` (2048 frames): dense, on any device; the JAX
-  package runs these as plain einsums even on the TPU;
+- T and S ≤ ``DENSE_MAX`` (2048 frames): dense, on any device, with a
+  key mask where (B,) lengths are given (``_dense_reference``, :66); the
+  JAX package runs these as plain einsums even on the TPU;
 - longer, on the CPU: ``flash_attention_plain``;
 - longer, on CUDA: ``flash_attention_kernel``, the hand-written kernel
   ``csrc/flash_attention.cu``, which replaces both TPU kernels
@@ -52,23 +53,30 @@ def banded_attention_cached(
 ) -> torch.Tensor:
     """Banded cross-attention with pre-gathered keys/values.
 
-    q (B, T, H·D); k_win/v_win (B, T, W, H, D); valid (T, W) bool.
+    q (B, T, H·D); k_win/v_win (B, T, W, H, D); valid (T, W) bool, or
+    (B, T, W) for per-row bands (mixed-length batches).
     """
     b, t, inner = q.shape
     d = inner // num_heads
     qh = q.reshape(b, t, num_heads, d)
     scores = torch.einsum("bthd,btwhd->bhtw", qh, k_win) * d**-0.5
+    vmask = valid[:, None] if valid.ndim == 3 else valid[None, None]
     # masked in f32: -finfo(f32).max does not fit bf16
-    scores = scores.float().masked_fill(~valid[None, None], -_NEG_INF)
+    scores = scores.float().masked_fill(~vmask, -_NEG_INF)
     attn = _softmax_f32(scores, qh.dtype)
     out = torch.einsum("bhtw,btwhd->bthd", attn, v_win)
     return out.reshape(b, t, inner)
 
 
 def dense_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Materialized-scores attention: q (B, T, H·D), k/v (B, S, H·D)."""
+    """Materialized-scores attention: q (B, T, H·D), k/v (B, S, H·D);
+    keys at or past a row's ``lengths`` entry (B,) are masked."""
     b, t, inner = q.shape
     s = k.shape[1]
     d = inner // num_heads
@@ -76,6 +84,9 @@ def dense_attention(
     kh = k.reshape(b, s, num_heads, d)
     vh = v.reshape(b, s, num_heads, d)
     scores = torch.einsum("bthd,bshd->bhts", qh, kh) * d**-0.5
+    if lengths is not None:
+        keymask = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+        scores = scores.masked_fill(~keymask[:, None, None, :], -math.inf)
     attn = _softmax_f32(scores, qh.dtype)
     out = torch.einsum("bhts,bshd->bthd", attn, vh)
     return out.reshape(b, t, inner)
@@ -193,14 +204,19 @@ flash_attention_kernel.launches = 0
 
 
 def self_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Router for unmasked self-attention (the JAX ``flash_attention_flat``):
+    """Router for self-attention (the JAX ``flash_attention_flat`` /
+    ``_flash_route``), with optional (B,) int32 real lengths on q's device:
     dense up to ``DENSE_MAX`` frames on any device; beyond, the plain flash
     version on the CPU and the flash kernel on any other device (which
     raises unless it is CUDA)."""
     if max(q.shape[1], k.shape[1]) <= DENSE_MAX:
-        return dense_attention(q, k, v, num_heads)
+        return dense_attention(q, k, v, num_heads, lengths)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, num_heads)
-    return flash_attention_kernel(q, k, v, num_heads)
+        return flash_attention_plain(q, k, v, num_heads, lengths)
+    return flash_attention_kernel(q, k, v, num_heads, lengths)

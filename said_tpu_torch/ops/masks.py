@@ -1,7 +1,8 @@
 """Alignment-bias band for audio↔frame cross-attention (numpy).
 
-A copy of ``said_tpu.ops.masks.alignment_band`` / ``band_gather_indices``:
-importing that module pulls in jax through ``said_tpu/ops/__init__.py``.
+A copy of ``said_tpu.ops.masks.alignment_band`` / ``band_gather_indices``
+/ ``alignment_band_dynamic``: importing that module pulls in jax through
+``said_tpu/ops/__init__.py``.
 Query frame ``i`` may attend to context positions ``[c_min_i, c_max_i)``:
 
     r      = c_len / x_len
@@ -47,3 +48,37 @@ def band_gather_indices(
     valid = raw < c_max[:, None]
     idx = np.clip(raw, 0, c_len - 1).astype(np.int32)
     return idx, valid, width
+
+
+def alignment_band_dynamic(
+    x_len_pad: int, c_len_pad: int, x_real, c_real, pad: int = 1
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The band of a padded (x_len_pad, c_len_pad) buffer whose real
+    lengths ``x_real``/``c_real`` are scalars or (B,) vectors (bucketed and
+    mixed-length batches).
+
+    Returns (idx, valid) of shape (x_len_pad, W), or (B, x_len_pad, W) for
+    vectors, with W = ceil(c_len_pad / x_len_pad) + 2·pad + 1 ≥ any real
+    width. Rows at or past the real length keep entry 0 valid (a softmax
+    needs one unmasked key; those rows are masked downstream). Computed in
+    float32, as the JAX version computes it on the device, so both give
+    the same table bit for bit.
+    """
+    f32 = np.float32
+    width = int(np.ceil(c_len_pad / x_len_pad)) + 2 * pad + 1
+    x_real = np.asarray(x_real, f32)
+    c_real = np.asarray(c_real, f32)
+    i = np.arange(x_len_pad, dtype=f32)
+    if x_real.ndim == 1:
+        x_real, c_real, i = x_real[:, None], c_real[:, None], i[None, :]
+    r = c_real / x_real
+    kh = r / f32(2.0) + f32(pad)
+    c_mid = (i + f32(0.5)) * r
+    c_min = np.maximum(np.round(c_mid - kh), f32(0.0))
+    c_max = np.minimum(np.round(c_mid + kh), c_real)
+    raw = c_min[..., None] + np.arange(width, dtype=f32)
+    row_dead = i >= x_real
+    valid = (raw < c_max[..., None]) & ~row_dead[..., None]
+    valid[..., 0] |= row_dead
+    idx = np.clip(raw, 0, c_len_pad - 1).astype(np.int32)
+    return idx, valid

@@ -1,8 +1,9 @@
-"""LayerNorm and GroupNorm32(+SiLU) with f32 statistics: routers, plain
-twins, and the Triton kernels for Hopper.
+"""LayerNorm and GroupNorm32(+SiLU), plain and masked, with f32
+statistics: routers, plain twins, and the Triton kernels for Hopper.
 
-Ports ``said_tpu.ops.norms`` (routers ``layer_norm_f32`` :118 and
-``group_norm`` :69) and replaces its Pallas kernels:
+Ports ``said_tpu.ops.norms`` (routers ``layer_norm_f32`` :118,
+``group_norm`` :69 and ``group_norm_masked`` :173) and replaces its
+Pallas kernels:
 
 - ``layer_norm_kernel`` replaces ``layer_norm_pallas``
   (said_tpu/ops/pallas_norms.py:441, K7).
@@ -10,6 +11,14 @@ Ports ``said_tpu.ops.norms`` (routers ``layer_norm_f32`` :118 and
   two-phase form ``group_norm_pallas_blocked`` (:249, K5). The split into
   phases existed only because a long row overflows the TPU's VMEM; this
   kernel streams any T.
+- ``group_norm_masked_kernel`` replaces ``group_norm_masked_pallas``
+  (:133, K4) and ``group_norm_masked_pallas_blocked`` (:338, K6): the
+  same kernel body with a per-row length, so the two statistics streams
+  stop at the row's real length while the normalise stream still covers
+  all T rows (padded rows hold the finite values the JAX version gives
+  them). Every caller builds its frame mask as ``arange(T) < len``, so a
+  (B,) length is the same function as K4's (B, T) mask on every input
+  the system makes.
 
 What bounds them on the card: device-memory bandwidth (a few flops per
 element). The UNet's (2, 600, 192) tensor is 0.9 MB in f32, so at the
@@ -82,6 +91,34 @@ def group_norm_plain(
     return out.to(x.dtype)
 
 
+def group_norm_masked_plain(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    lengths: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+) -> torch.Tensor:
+    """GroupNorm whose statistics cover only frames ``t < lengths[b]``
+    (``_group_norm_masked_jnp``): count = len·C/G (at least 1), two-pass
+    f32 mean and variance over the real frames; every frame, padded ones
+    included, is normalised with them."""
+    b, t, c = x.shape
+    g = num_groups
+    lens = lengths.to(device=x.device, dtype=torch.int64)
+    m = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).float()[:, :, None, None]
+    count = (m.sum(dim=1, keepdim=True) * (c // g)).clamp(min=1.0)
+    xf = x.float().reshape(b, t, g, c // g)
+    mean = (xf * m).sum(dim=(1, 3), keepdim=True) / count
+    var = (((xf - mean) * m) ** 2).sum(dim=(1, 3), keepdim=True) / count
+    out = ((xf - mean) / torch.sqrt(var + eps)).reshape(b, t, c)
+    out = out * weight.float() + bias.float()
+    if act == "silu":
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------- routers
 
 
@@ -109,6 +146,22 @@ def group_norm(
     return group_norm_kernel(x, num_groups, weight, bias, eps, act)
 
 
+def group_norm_masked(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    lengths: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+) -> torch.Tensor:
+    """Masked GroupNorm(+SiLU) router, (B,) real lengths: plain twin on
+    the CPU, the Triton kernel otherwise."""
+    if x.device.type == "cpu":
+        return group_norm_masked_plain(x, num_groups, weight, bias, lengths, eps, act)
+    return group_norm_masked_kernel(x, num_groups, weight, bias, lengths, eps, act)
+
+
 # ------------------------------------------------------- Triton kernels
 
 
@@ -133,9 +186,9 @@ def _layer_norm_fwd(
 
 
 def _group_norm_fwd(
-    X, W, B, Y, T, C, G, cg, n_gblocks, eps,
-    SILU: "tl.constexpr", GB: "tl.constexpr", CG_P: "tl.constexpr",
-    BLOCK_T: "tl.constexpr",
+    X, W, B, Y, L, T, C, G, cg, n_gblocks, eps,
+    SILU: "tl.constexpr", MASKED: "tl.constexpr", GB: "tl.constexpr",
+    CG_P: "tl.constexpr", BLOCK_T: "tl.constexpr",
 ):
     pid = tl.program_id(0)
     batch = pid // n_gblocks
@@ -148,21 +201,27 @@ def _group_norm_fwd(
     # same[r, s]: lanes r and s hold channels of the same (real) group
     same = (gi[:, None] == gi[None, :]) & cmask[None, :]
     base = batch.to(tl.int64) * T * C
-    n = T * cg
+    if MASKED:
+        # the statistics streams stop at this row's real length
+        t_stat = tl.maximum(tl.minimum(tl.load(L + batch), T), 0)
+        n = tl.maximum(t_stat * cg, 1)
+    else:
+        t_stat = T
+        n = T * cg
 
     acc = tl.zeros((BLOCK_T, GB * CG_P), dtype=tl.float32)
-    for t0 in range(0, T, BLOCK_T):
+    for t0 in range(0, t_stat, BLOCK_T):
         t = t0 + tl.arange(0, BLOCK_T)
-        mask = (t < T)[:, None] & cmask[None, :]
+        mask = (t < t_stat)[:, None] & cmask[None, :]
         offs = base + t.to(tl.int64)[:, None] * C + ch[None, :]
         acc += tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
     colsum = tl.sum(acc, axis=0)
     mean = tl.sum(tl.where(same, colsum[None, :], 0.0), axis=1) / n
 
     acc = tl.zeros((BLOCK_T, GB * CG_P), dtype=tl.float32)
-    for t0 in range(0, T, BLOCK_T):
+    for t0 in range(0, t_stat, BLOCK_T):
         t = t0 + tl.arange(0, BLOCK_T)
-        mask = (t < T)[:, None] & cmask[None, :]
+        mask = (t < t_stat)[:, None] & cmask[None, :]
         offs = base + t.to(tl.int64)[:, None] * C + ch[None, :]
         x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
         d = tl.where(mask, x - mean[None, :], 0.0)
@@ -234,6 +293,28 @@ def layer_norm_kernel(
 layer_norm_kernel.launches = 0
 
 
+def _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name):
+    c = _check(x, weight, bias, name)
+    if x.ndim != 3 or c % num_groups or x.shape[1] == 0:
+        raise ValueError(f"{name}: needs (B, T>0, C) with C % G == 0, got {tuple(x.shape)}, G={num_groups}")
+    if act not in ("none", "silu"):
+        raise ValueError(f"{name}: act {act!r} not supported")
+    _, gn = _kernels()
+    b, t, _ = x.shape
+    cg = c // num_groups
+    cg_p = _next_pow2(cg)
+    gb = max(1, 32 // cg_p)  # groups per program: lanes span >= 32 channels
+    n_gblocks = -(-num_groups // gb)
+    block_t = max(1, 4096 // (gb * cg_p))
+    y = torch.empty_like(x)
+    # unmasked: L is never read (MASKED is a compile-time False)
+    gn[(b * n_gblocks,)](
+        x, weight, bias, y, x if lengths is None else lengths, t, c, num_groups, cg, n_gblocks, eps,
+        SILU=act == "silu", MASKED=lengths is not None, GB=gb, CG_P=cg_p, BLOCK_T=block_t, num_warps=4,
+    )
+    return y
+
+
 def group_norm_kernel(
     x: torch.Tensor,
     num_groups: int,
@@ -243,25 +324,35 @@ def group_norm_kernel(
     act: str = "none",
 ) -> torch.Tensor:
     """Triton GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA tensor."""
-    c = _check(x, weight, bias, "group_norm_kernel")
-    if x.ndim != 3 or c % num_groups or x.shape[1] == 0:
-        raise ValueError(f"group_norm_kernel: needs (B, T>0, C) with C % G == 0, got {tuple(x.shape)}, G={num_groups}")
-    if act not in ("none", "silu"):
-        raise ValueError(f"group_norm_kernel: act {act!r} not supported")
-    _, gn = _kernels()
-    b, t, _ = x.shape
-    cg = c // num_groups
-    cg_p = _next_pow2(cg)
-    gb = max(1, 32 // cg_p)  # groups per program: lanes span >= 32 channels
-    n_gblocks = -(-num_groups // gb)
-    block_t = max(1, 4096 // (gb * cg_p))
-    y = torch.empty_like(x)
-    gn[(b * n_gblocks,)](
-        x, weight, bias, y, t, c, num_groups, cg, n_gblocks, eps,
-        SILU=act == "silu", GB=gb, CG_P=cg_p, BLOCK_T=block_t, num_warps=4,
-    )
+    y = _launch_group_norm(x, num_groups, weight, bias, None, eps, act, "group_norm_kernel")
     group_norm_kernel.launches += 1
     return y
 
 
 group_norm_kernel.launches = 0
+
+
+def group_norm_masked_kernel(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    lengths: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+) -> torch.Tensor:
+    """Triton masked GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA
+    tensor; ``lengths`` a contiguous (B,) int32 tensor on the same device
+    (statistics over frames t < lengths[b], count clamped to ≥ 1)."""
+    name = "group_norm_masked_kernel"
+    _check(x, weight, bias, name)
+    if (lengths.dtype != torch.int32 or lengths.ndim != 1 or lengths.shape[0] != x.shape[0]
+            or lengths.device != x.device or not lengths.is_contiguous()):
+        raise ValueError(f"{name}: lengths must be a contiguous ({x.shape[0]},) int32 tensor on {x.device}, "
+                         f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
+    y = _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name)
+    group_norm_masked_kernel.launches += 1
+    return y
+
+
+group_norm_masked_kernel.launches = 0

@@ -7,7 +7,10 @@ frames; the last is past the dense limit, so its self-attention runs the
 flash kernel) and compute dtype (float32, bfloat16): the full-width SAID
 (wav2vec2-base + the 192-channel UNet) with random weights from seed 0,
 synthetic audio, batch 1 with CFG 2.0 (the UNet runs at batch 2 after its
-first cross-attention). Per cell and repeat:
+first cross-attention). One more cell is the eval protocol's batch in
+length-bucketed mode: 8 copies of a 4.3-s clip (258 real frames) in a
+512-frame bucket (``--length_bucket 256``), CFG 2.0, float32, so every
+GroupNorm is the masked kernel. Per cell and repeat:
 
 - ``prepare_ms``: ``SAIDPipeline.prepare`` (encoder, null embedding, K/V
   caches, timestep table) on the host clock, synchronised;
@@ -43,13 +46,15 @@ from said_tpu_torch.models.said import SAMPLING_RATE, SAIDPipeline, process_audi
 FPS = 60
 CLIPS_S = (10.0, 30.0, 60.0)
 DTYPES = ("float32", "bfloat16")
+# the eval batch: (clip seconds, batch, length bucket), float32 only
+EVAL_CELL = (4.3, 8, 256)
 STEPS, PROFILE_STEPS = 300, 20
 
 # (substring of the lower-cased device event name, family); first match wins
 FAMILIES = (
     ("flash_attention", "flash_attention (ours)"),
     ("geglu", "geglu_ffn (ours)"),
-    ("_group_norm_fwd", "group_norm (ours)"),
+    ("_group_norm_fwd", "group_norm (ours, plain or masked)"),
     ("_layer_norm_fwd", "layer_norm (ours)"),
     ("strided_conv", "strided_conv_gelu (ours)"),
     ("gemm", "cuBLAS GEMM/GEMV"),
@@ -74,29 +79,37 @@ def family(name: str) -> str:
 
 
 class Cell:
-    """One (clip, dtype) configuration with its prepared state."""
+    """One (clip, dtype, batch, bucket) configuration with its prepared
+    state; ``bucket`` > 0 pads the window to a multiple of it and runs
+    length-bucketed mode, as ``SAIDPipeline.inference`` does."""
 
-    def __init__(self, seconds: float, dtype: str, model):
-        self.name = f"{dtype}_{seconds:g}s"
+    def __init__(self, seconds: float, dtype: str, model, batch: int = 1, bucket: int = 0):
+        self.name = f"{dtype}_{seconds:g}s" + (f"_b{batch}_bucket{bucket}" if bucket else "")
         self.pipe = SAIDPipeline(model)
         rng = np.random.default_rng(0)
         n = int(seconds * SAMPLING_RATE)
         t = np.arange(n) / SAMPLING_RATE
         voice = np.sin(2 * np.pi * 140 * t) * (1 + np.sin(2 * np.pi * 3 * t)) + 0.1 * rng.standard_normal(n)
-        self.wave = torch.from_numpy(process_audio(voice.astype(np.float32))).cuda()
+        wave = np.repeat(process_audio(voice.astype(np.float32)), batch, axis=0)
         self.frames = int(n / SAMPLING_RATE * FPS)
-        self.latents = torch.from_numpy(rng.standard_normal((1, self.frames, 32)).astype(np.float32)).cuda()
+        self.real = (None, None)  # real samples and frames in bucketed mode
+        if bucket:
+            self.real = (n, self.frames)
+            self.frames = -(-self.frames // bucket) * bucket
+            wave = np.pad(wave, ((0, 0), (0, -(-self.frames * SAMPLING_RATE // FPS) - n)))
+        self.wave = torch.from_numpy(wave).cuda()
+        self.latents = torch.from_numpy(rng.standard_normal((batch, self.frames, 32)).astype(np.float32)).cuda()
         self.kv, self.table = self.prepare()
 
     def prepare(self):
-        return self.pipe.prepare(self.wave, self.frames, True)
+        return self.pipe.prepare(self.wave, self.frames, True, *self.real)
 
     @torch.no_grad()
     def chain(self, steps: int):
-        unet, kv, table = self.pipe.model.unet, self.kv, self.table
+        unet, kv, table, real = self.pipe.model.unet, self.kv, self.table, self.real[1]
 
         def denoise_fn(x, t):
-            return unet(x, kv_caches=kv, emb=table[t], cfg_fold=True)
+            return unet(x, kv_caches=kv, emb=table[t], cfg_fold=True, seq_len_real=real)
 
         config = SamplerConfig(num_inference_steps=steps, guidance_scale=2.0)
         return sample(self.pipe.schedule, denoise_fn, self.latents, config, cfg_folded=True)[0]
@@ -144,6 +157,9 @@ def main(argv=None) -> dict:
     for dtype in DTYPES:
         model = random_init_(build_said_model(dtype=dtype), seed=0).cuda().eval()
         cells += [Cell(s, dtype, model) for s in CLIPS_S]
+        if dtype == "float32":
+            seconds, batch, bucket = EVAL_CELL
+            cells.append(Cell(seconds, dtype, model, batch, bucket))
     for cell in cells:  # warm-up: Triton compiles, cuBLAS heuristics, allocator
         cell.chain(5)
     readings = {c.name: [] for c in cells}

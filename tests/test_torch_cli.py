@@ -5,7 +5,9 @@ the JAX package ``said_tpu`` cannot be imported (the machine with the
 card has none of the first three, and the port depends on nothing of
 the fourth): every module of ``said_tpu_torch`` is imported there first, then
 ``said_tpu_torch.cli.inference --device cpu --num_steps 3`` turns a
-0.8-s WAV into a CSV of 48 rows under the 32 ARKit names.
+0.8-s WAV into a CSV of 48 rows under the 32 ARKit names, and
+``said_tpu_torch.cli.test_inference`` turns a one-clip test split into
+its CSVs.
 """
 
 import argparse
@@ -21,14 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from said_tpu_torch.cli import inference
+from said_tpu_torch.cli import inference, test_inference
 from said_tpu_torch.cli._common import (
     ARKIT_BLENDSHAPES,
     load_blendshape_coeffs,
     load_said_weights,
     save_blendshape_coeffs,
 )
+from said_tpu.data import blendvoca as jblendvoca
 from said_tpu.utils import audio as jaudio
+from said_tpu_torch.data import blendvoca
 from said_tpu_torch.models.said import SAID, SAIDPipeline, process_audio
 from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from said_tpu_torch.utils import audio
@@ -48,8 +52,9 @@ _BLOCKED_RUN = textwrap.dedent(
     import said_tpu_torch
     for mod in pkgutil.walk_packages(said_tpu_torch.__path__, "said_tpu_torch."):
         importlib.import_module(mod.name)
-    from said_tpu_torch.cli import inference
-    inference.main(sys.argv[1:])
+    from said_tpu_torch.cli import inference, test_inference
+    cli = {"inference": inference, "test_inference": test_inference}[sys.argv[1]]
+    cli.main(sys.argv[2:])
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pandas", "triton", "said_tpu"))
     assert not leaked, leaked
     """
@@ -65,7 +70,7 @@ def test_cli_runs_without_jax_flax_pandas(tmp_path):
     wavfile.write(wav, 16000, (0.3 * np.sin(2 * np.pi * 300 * t) * 32767).astype(np.int16))
     out = tmp_path / "out.csv"
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN, "--device", "cpu", "--num_steps", "3",
+        [sys.executable, "-c", _BLOCKED_RUN, "inference", "--device", "cpu", "--num_steps", "3",
          "--weights_path", "", "--audio_path", str(wav), "--output_path", str(out)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
@@ -77,6 +82,109 @@ def test_cli_runs_without_jax_flax_pandas(tmp_path):
     assert coeffs.shape == (48, 32)
     assert np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0
     assert coeffs.std() > 1e-3
+
+
+def _write_wav(path, seconds=0.4):
+    from scipy.io import wavfile
+
+    t = np.arange(int(seconds * 16000)) / 16000
+    wave = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+    wavfile.write(path, 16000, (wave * 32767).astype(np.int16))
+
+
+def _test_split(root, seconds):
+    """A toy test split: ``seconds[p][s]`` is the length of person p's
+    sentence s + 1."""
+    for pid, lengths in zip(blendvoca.PERSON_IDS_TEST, seconds):
+        (root / pid).mkdir(parents=True)
+        for sid, sec in enumerate(lengths, start=1):
+            _write_wav(root / pid / f"sentence{sid:02}.wav", sec)
+    return root
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    assert tuple(rows[0]) == ARKIT_BLENDSHAPES
+    return np.asarray(rows[1:], dtype=np.float64)
+
+
+def _processed_wave(path):
+    return process_audio(audio.fit_audio_unet(audio.load_audio(str(path), 16000), 16000, 60, 1).waveform)
+
+
+def test_test_inference_runs_without_jax_flax_pandas(tmp_path):
+    """(and without ``said_tpu``): the full-width model, one clip, 2 steps"""
+    audio = _test_split(tmp_path / "audio", [[0.3]])
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, "test_inference", "--device", "cpu", "--num_steps", "2",
+         "--num_repeats", "2", "--batch_size", "2", "--audio_dir", str(audio), "--output_dir", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for k in range(2):
+        coeffs = _read_csv(out / blendvoca.PERSON_IDS_TEST[0] / f"sentence01-{k}.csv")
+        assert coeffs.shape == (18, 32)
+        assert np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_clip", "mixed_batching"])
+def test_test_inference_writes_every_sample(tmp_path, monkeypatch, mixed):
+    """Two persons × two sentences (18, 27, 21 and 12 frames, one 16-frame
+    bucket or two), three samples each in batches of two: every CSV holds
+    its clip's real rows in [0, 1]; per clip, the CSVs equal the same
+    requests made straight through ``SAIDPipeline`` with one generator."""
+    def tiny(*args, **kwargs):
+        return SAID(audio_config=Wav2Vec2Config.tiny())
+
+    monkeypatch.setattr(test_inference, "build_said_model", tiny)
+    seconds = [[0.3, 0.45], [0.35, 0.2]]
+    audio = _test_split(tmp_path / "audio", seconds)
+    out = tmp_path / "out"
+    argv = ["--device", "cpu", "--num_steps", "2", "--num_repeats", "3", "--batch_size", "2",
+            "--length_bucket", "16", "--audio_dir", str(audio), "--output_dir", str(out)]
+    written = test_inference.main(argv + (["--mixed_batching"] if mixed else []))
+    assert len(written) == 12
+    for pid, lengths in zip(blendvoca.PERSON_IDS_TEST, seconds):
+        for sid, sec in enumerate(lengths, start=1):
+            for k in range(3):
+                coeffs = _read_csv(out / pid / f"sentence{sid:02}-{k}.csv")
+                assert coeffs.shape == (int(sec * 60), 32)
+                assert np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0
+                assert coeffs.std() > 1e-3
+    if mixed:
+        return
+    pipe = SAIDPipeline(load_said_weights(tiny(), "", seed=0).eval())
+    gen = torch.Generator().manual_seed(0)
+    for pid, lengths in zip(blendvoca.PERSON_IDS_TEST, seconds):
+        for sid, sec in enumerate(lengths, start=1):
+            wave = _processed_wave(audio / pid / f"sentence{sid:02}.wav")
+            got = [load_blendshape_coeffs(str(out / pid / f"sentence{sid:02}-{k}.csv")) for k in range(3)]
+            for lo, n in ((0, 2), (2, 1)):
+                want = pipe.inference(np.repeat(wave, n, axis=0), num_inference_steps=2, guidance_scale=2.0,
+                                      generator=gen, length_bucket=16).result[:, : int(sec * 60)]
+                np.testing.assert_array_equal(np.stack(got[lo : lo + n]), want)
+
+
+def test_test_inference_mixed_needs_a_bucket(tmp_path):
+    with pytest.raises(SystemExit, match="length_bucket"):
+        test_inference.main(["--device", "cpu", "--audio_dir", str(tmp_path), "--mixed_batching",
+                             "--length_bucket", "0"])
+
+
+def test_test_split_matches_the_jax_package(tmp_path):
+    """Subjects, sentences, discovery order, and the CSV columns: the
+    port's ARKit names are the JAX package's BLENDSHAPE_CLASSES, in order."""
+    assert blendvoca.PERSON_IDS_TEST == jblendvoca.PERSON_IDS_TEST
+    assert blendvoca.SENTENCE_IDS == jblendvoca.SENTENCE_IDS
+    assert tuple(jblendvoca.BLENDSHAPE_CLASSES) == ARKIT_BLENDSHAPES
+    audio = _test_split(tmp_path / "audio", [[0.1, 0.1, 0.1], [0.1]])
+    (audio / blendvoca.PERSON_IDS_TEST[0] / "sentence02.wav").unlink()
+    got = [(p.person_id, p.sentence_id, p.audio) for p in blendvoca.get_data_paths(str(audio))]
+    want = [(p.person_id, p.sentence_id, p.audio)
+            for p in jblendvoca.get_data_paths(str(audio), None, jblendvoca.PERSON_IDS_TEST)]
+    assert got == want and len(got) == 3
 
 
 def test_arkit_names_follow_the_asset_file():
@@ -94,7 +202,7 @@ def test_csv_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--length_bucket", "120"], "Queue 1 item 8"),
+        (["--streaming_window", "600", "--length_bucket", "120"], "Queue 1 item 9"),
         (["--streaming_window", "3600"], "Queue 1 item 9"),
         (["--seq_shards", "2"], "Queue 1 item 13"),
         (["--attn_impl", "flash_sp"], "Queue 1 item 13"),
@@ -105,18 +213,11 @@ def test_unported_options_fail_loudly(flags, item):
         inference.main(["--device", "cpu", *flags])
 
 
-def _write_wav(path, seconds=0.4):
-    from scipy.io import wavfile
-
-    t = np.arange(int(seconds * 16000)) / 16000
-    wave = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
-    wavfile.write(path, 16000, (wave * 32767).astype(np.int16))
-
-
 @pytest.mark.parametrize(
     "flags,kw",
-    [(["--solver", "dpmpp_2m"], {"solver": "dpmpp_2m"}), (["--attn_impl", "flash"], {})],
-    ids=["dpmpp_2m", "attn_flash"],
+    [(["--solver", "dpmpp_2m"], {"solver": "dpmpp_2m"}), (["--attn_impl", "flash"], {}),
+     (["--length_bucket", "16"], {"length_bucket": 16})],
+    ids=["dpmpp_2m", "attn_flash", "length_bucket"],
 )
 def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
     """``--solver dpmpp_2m`` reaches the sampler and ``--attn_impl flash``
@@ -133,7 +234,7 @@ def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
     pipe = SAIDPipeline(load_said_weights(tiny(), "", seed=0).eval())
     wave = process_audio(audio.fit_audio_unet(audio.load_audio(str(wav), 16000), 16000, 60, 1).waveform)
     want = pipe.inference(wave, num_inference_steps=3, guidance_scale=2.0,
-                          generator=torch.Generator().manual_seed(0), **kw).result[0]
+                          generator=torch.Generator().manual_seed(0), **kw).result[0, :24]
     np.testing.assert_array_equal(got, want)
     assert load_blendshape_coeffs(str(out)).shape == (24, 32)
 
@@ -166,14 +267,18 @@ def test_port_imports_nothing_of_the_jax_package():
         assert not pattern.search(path.read_text()), path
 
 
-def test_defaults_stay_in_the_working_directory():
+@pytest.mark.parametrize("cli,names", [
+    (inference, ("weights_path", "audio_path", "output_path", "output_image_path", "intermediate_dir")),
+    (test_inference, ("weights_path", "audio_dir", "output_dir")),
+], ids=["inference", "test_inference"])
+def test_defaults_stay_in_the_working_directory(cli, names):
     parser = argparse.ArgumentParser()
-    inference.add_arguments(parser)
+    cli.add_arguments(parser)
     args = parser.parse_args([])
-    for name in ("weights_path", "audio_path", "output_path", "output_image_path", "intermediate_dir"):
+    for name in names:
         value = getattr(args, name)
         assert ".." not in value and not os.path.isabs(value), (name, value)
-    assert args.weights_path == ""
+    assert args.weights_path == "" and args.device == "cuda"
 
 
 def test_audio_path_is_required(capsys):

@@ -77,6 +77,38 @@ def test_group_norm_kernel(dev, dtype, shape, groups, eps, act):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize(
+    "shape,groups,eps,act,lengths",
+    [
+        ((2, 512, 192), 32, 1e-5, "silu", [430, 258]),
+        ((16, 512, 192), 32, 1e-5, "silu", [156, 204, 258, 306] * 4),
+        ((2, 3840, 192), 32, 1e-6, "none", [3600, 3600]),
+        ((8, 27305, 512), 512, 1e-5, "none", [13759] * 4 + [16319] * 4),
+        ((1, 204799, 512), 512, 1e-5, "none", [191999]),
+        ((3, 37, 192), 32, 1e-5, "silu", [37, 20, 1]),
+    ],
+)
+def test_group_norm_masked_kernel(dev, dtype, shape, groups, eps, act, lengths):
+    c = shape[-1]
+    x = _randn(shape, 3, dev, dtype, 2.0, 30.0)
+    w = _randn((c,), 4, dev, torch.float32)
+    b = _randn((c,), 5, dev, torch.float32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    _assert_close(norms.group_norm_masked_kernel(x, groups, w, b, lens, eps, act),
+                  norms.group_norm_masked_plain(x, groups, w, b, lens, eps, act), dtype)
+
+
+def test_group_norm_masked_kernel_refuses_bad_lengths(dev):
+    x = _randn((2, 16, 192), 6, dev, torch.float32)
+    w = torch.ones(192, device=dev)
+    for bad in (torch.tensor([8, 8], device=dev),  # int64
+                torch.tensor([8], dtype=torch.int32, device=dev),
+                torch.tensor([8, 8], dtype=torch.int32)):  # on the CPU
+        with pytest.raises(ValueError, match="lengths"):
+            norms.group_norm_masked_kernel(x, 32, w, w, bad)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("shape", [(2, 600, 192), (1, 37, 192)])
 def test_geglu_ffn_kernel(dev, dtype, shape):
     c = shape[-1]
@@ -103,16 +135,19 @@ def test_routers_launch_kernels_on_cuda(dev):
     w = torch.ones(192, device=dev)
     b = torch.zeros(192, device=dev)
     before = (norms.layer_norm_kernel.launches, norms.group_norm_kernel.launches,
+              norms.group_norm_masked_kernel.launches,
               ffn.geglu_ffn_kernel.launches, conv.strided_conv_gelu_kernel.launches)
     norms.layer_norm(x, w, b)
     norms.group_norm(x, 32, w, b, act="silu")
+    norms.group_norm_masked(x, 32, w, b, torch.tensor([40, 7], dtype=torch.int32, device=dev), act="silu")
     ffn.geglu_ffn(x, _randn((1536, 192), 14, dev, torch.float32, 0.05), torch.zeros(1536, device=dev),
                   _randn((192, 768), 15, dev, torch.float32, 0.05), b)
     conv.strided_conv_gelu(_randn((1, 41, 512), 16, dev, torch.float32),
                            _randn((3, 512, 512), 17, dev, torch.float32, 0.03))
     after = (norms.layer_norm_kernel.launches, norms.group_norm_kernel.launches,
+             norms.group_norm_masked_kernel.launches,
              ffn.geglu_ffn_kernel.launches, conv.strided_conv_gelu_kernel.launches)
-    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1, 1]
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -133,6 +168,16 @@ def test_flash_attention_kernel(dev, dtype, heads, d, b, t, s, lengths):
     if lengths is not None:
         for i, n in enumerate(lengths):
             assert torch.all(got[i, n:] == 0)
+
+
+def test_self_attention_routes_lengths_to_the_kernel(dev):
+    n = attention.DENSE_MAX + 64
+    q = _randn((2, n, 192), 22, dev, torch.float32)
+    lens = torch.tensor([n, 2100], dtype=torch.int32, device=dev)
+    before = attention.flash_attention_kernel.launches
+    out = attention.self_attention(q, q, q, 6, lens)
+    assert attention.flash_attention_kernel.launches == before + 1
+    _assert_close(out, attention.flash_attention_plain(q, q, q, 6, lens), torch.float32)
 
 
 def test_self_attention_routes_long_clips_to_the_kernel(dev):

@@ -17,11 +17,19 @@ from said_tpu.diffusion import schedule as jsched
 from said_tpu.ops import masks as jmasks
 from said_tpu.ops.attention import banded_attention_cached as j_banded_cached
 from said_tpu.ops.attention import multi_head_attention as j_mha
-from said_tpu.ops.norms import _group_norm_jnp, _layer_norm_jnp
+from said_tpu.ops import pallas_norms
+from said_tpu.ops.norms import _group_norm_jnp, _group_norm_masked_jnp, _layer_norm_jnp
+from said_tpu.ops.pallas_attention import _dense_reference
 from said_tpu.ops.pallas_conv import _strided_conv_gelu_jnp, strided_conv_gelu_pallas
 from said_tpu.ops.pallas_ffn import geglu_ffn_pallas
-from said_tpu.ops.pallas_norms import group_norm_pallas, layer_norm_pallas
+from said_tpu.ops.pallas_norms import (
+    group_norm_masked_pallas,
+    group_norm_masked_pallas_blocked,
+    group_norm_pallas,
+    layer_norm_pallas,
+)
 from said_tpu.ops.resample import linear_interp_time as j_interp
+from said_tpu.ops.resample import linear_interp_time_dynamic as j_interp_dynamic
 from said_tpu_torch.diffusion import schedule as tsched
 from said_tpu_torch.ops import attention, conv, ffn, masks, norms, resample
 
@@ -59,6 +67,51 @@ def test_group_norm_eps_1e6_matches_jax():
     x, w, b = _rand((2, 64, 192), 3, 0.01), _rand((192,), 4), _rand((192,), 5)
     got = norms.group_norm_plain(_t(x), 32, _t(w), _t(b), 1e-6).numpy()
     _close(got, group_norm_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 32, 1e-6, interpret=True))
+
+
+_MASKED_CASES = [
+    ((2, 96, 192), 32, [60, 96], 1e-5, "silu"),
+    ((2, 96, 192), 32, [37, 96], 1e-6, "none"),
+    ((2, 100, 512), 512, [77, 41], 1e-5, "none"),
+    ((2, 96, 512), 512, [96, 50], 1e-5, "silu"),
+]
+
+
+@pytest.mark.parametrize("shape,groups,lens,eps,act", _MASKED_CASES)
+def test_group_norm_masked_matches_jax(shape, groups, lens, eps, act, monkeypatch):
+    """The plain twin against ``_group_norm_masked_jnp``, K4 and (where T
+    is a multiple of 8) K6 in interpret mode, on whole tensors (padded
+    rows included); K6 cut into 32-frame blocks so its Chan combine runs."""
+    c, t = shape[-1], shape[1]
+    x, w, b = _rand(shape, 40, 3.0, 1.5), _rand((c,), 41), _rand((c,), 42)
+    lengths = np.array(lens, np.int32)
+    mask = jnp.asarray(np.arange(t)[None, :] < lengths[:, None])
+    got = norms.group_norm_masked(_t(x), groups, _t(w), _t(b), _t(lengths), eps, act).numpy()
+    jx, jw, jb = jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)
+    _close(got, _group_norm_masked_jnp(jx, groups, jw, jb, mask, eps, act))
+    _close(got, group_norm_masked_pallas(jx, jw, jb, mask, groups, eps, act, interpret=True))
+    if t % 8 == 0:
+        monkeypatch.setattr(pallas_norms, "_MAX_TC_VMEM", 32 * c)
+        assert pallas_norms._t_block(t, c) == 32
+        _close(got, group_norm_masked_pallas_blocked(jx, jw, jb, mask, groups, eps, act, interpret=True))
+    # real frames equal the unmasked norm of the unpadded row
+    for i, n in enumerate(lens):
+        _close(got[i, :n], norms.group_norm_plain(_t(x[i : i + 1, :n]), groups, _t(w), _t(b), eps, act)[0].numpy())
+
+
+def test_group_norm_masked_full_length_is_group_norm():
+    x, w, b = _rand((3, 40, 192), 43, 2.0), _rand((192,), 44), _rand((192,), 45)
+    full = torch.full((3,), 40, dtype=torch.int32)
+    got = norms.group_norm_masked_plain(_t(x), 32, _t(w), _t(b), full, 1e-5, "silu")
+    _close(got.numpy(), norms.group_norm_plain(_t(x), 32, _t(w), _t(b), 1e-5, "silu").numpy())
+
+
+def test_group_norm_masked_length_zero_is_finite():
+    """Length 0 never reaches the norm from the pipeline; the count clamp
+    keeps the twin (and the kernel) from dividing by zero."""
+    x = _rand((1, 8, 192), 46)
+    got = norms.group_norm_masked_plain(_t(x), 32, torch.ones(192), torch.zeros(192), torch.zeros(1, dtype=torch.int32))
+    assert torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 192), (1, 50, 768), (1, 37, 512)])
@@ -100,18 +153,23 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     wrapper, which raises, and no launch is counted."""
     x = torch.empty((2, 8, 192), device="meta")
     w = torch.empty((192,), device="meta")
+    lens = torch.full((2,), 8, dtype=torch.int32, device="meta")
     before = (norms.layer_norm_kernel.launches, norms.group_norm_kernel.launches,
+              norms.group_norm_masked_kernel.launches,
               ffn.geglu_ffn_kernel.launches, conv.strided_conv_gelu_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
         norms.layer_norm(x, w, w)
     with pytest.raises(ValueError, match="CUDA"):
         norms.group_norm(x, 32, w, w)
     with pytest.raises(ValueError, match="CUDA"):
+        norms.group_norm_masked(x, 32, w, w, lens)
+    with pytest.raises(ValueError, match="CUDA"):
         ffn.geglu_ffn(x, torch.empty((1536, 192), device="meta"), torch.empty(1536, device="meta"),
                       torch.empty((192, 768), device="meta"), w)
     with pytest.raises(ValueError, match="CUDA"):
         conv.strided_conv_gelu(x, torch.empty((3, 192, 192), device="meta"))
     after = (norms.layer_norm_kernel.launches, norms.group_norm_kernel.launches,
+             norms.group_norm_masked_kernel.launches,
              ffn.geglu_ffn_kernel.launches, conv.strided_conv_gelu_kernel.launches)
     assert after == before
 
@@ -134,6 +192,26 @@ def test_dense_attention_matches_jax(t, s, h):
     q, k, v = _rand((2, t, h * 32), 19), _rand((2, s, h * 32), 20), _rand((2, s, h * 32), 21)
     got = attention.dense_attention(_t(q), _t(k), _t(v), h).numpy()
     _close(got, j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h))
+
+
+def test_banded_attention_cached_per_row_band_matches_jax():
+    b, t, h, d = 2, 32, 6, 32
+    idx, valid = masks.alignment_band_dynamic(t, t, np.array([20, 32]), np.array([20, 32]))
+    w = idx.shape[-1]
+    q = _rand((b, t, h * d), 47)
+    k_win, v_win = _rand((b, t, w, h, d), 48), _rand((b, t, w, h, d), 49)
+    got = attention.banded_attention_cached(_t(q), _t(k_win), _t(v_win), _t(valid), h).numpy()
+    want = j_banded_cached(jnp.asarray(q), jnp.asarray(k_win), jnp.asarray(v_win), jnp.asarray(valid), h)
+    _close(got, want)
+
+
+def test_dense_attention_with_lengths_matches_jax():
+    b, t, h, d = 3, 40, 2, 32
+    q, k, v = _rand((b, t, h * d), 50), _rand((b, t, h * d), 51), _rand((b, t, h * d), 52)
+    lengths = np.array([40, 17, 1], np.int32)
+    got = attention.self_attention(_t(q), _t(k), _t(v), h, _t(lengths)).numpy()
+    want = _dense_reference(*(jnp.asarray(a).reshape(b, t, h, d) for a in (q, k, v)), lengths=jnp.asarray(lengths))
+    _close(got, np.asarray(want).reshape(b, t, h * d))
 
 
 def test_self_attention_router_caps_non_cpu_length():
@@ -166,6 +244,32 @@ def test_band_tables_equal_jax(x_len, c_len):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2] == want[2]
+
+
+@pytest.mark.parametrize(
+    "x_pad,c_pad,x_real,c_real",
+    [(32, 32, 20, 20), (512, 512, 258, 258), (3840, 3840, 3600, 3600), (37, 91, 30, 80),
+     (48, 48, [18, 26, 48], [18, 26, 48]), (100, 49, [7, 99], [3, 40])],
+)
+def test_dynamic_band_equals_jax(x_pad, c_pad, x_real, c_real):
+    """Exactly JAX's table, for one length and for (B,) lengths."""
+    got = masks.alignment_band_dynamic(x_pad, c_pad, np.asarray(x_real), np.asarray(c_real))
+    want = jmasks.alignment_band_dynamic(x_pad, c_pad, np.asarray(x_real), np.asarray(c_real))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got[0].shape[-1] == -(-c_pad // x_pad) + 3
+
+
+@pytest.mark.parametrize(
+    "out_pad,in_real,out_real",
+    [(80, 37, 60), (80, [37, 50, 12], [60, 80, 20]), (512, 49, 258), (64, 50, 1)],
+)
+def test_linear_interp_time_dynamic_matches_jax(out_pad, in_real, out_real):
+    x = _rand((3, 50, 16), 53)
+    got = resample.linear_interp_time_dynamic(_t(x), out_pad, np.asarray(in_real), np.asarray(out_real)).numpy()
+    want = j_interp_dynamic(jnp.asarray(x), out_pad, np.asarray(in_real), np.asarray(out_real))
+    _close(got, want, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("t,out_len", [(19, 24), (50, 30), (12, 12), (9, 1), (1999, 600)])
