@@ -29,7 +29,14 @@ Phases (any failure exits non-zero; there is no try/except around them):
    bucketed mode) runs at the UNet's eval-batch and 60-s bucketed shapes,
    at the encoder's conv_0 shapes of the eval batch and of a 60-s clip,
    and ragged; no single PyTorch call computes it, so it has no library
-   time.
+   time. GEGLU runs at the UNet's 10-s, 60-s and 6-min shapes, the eval
+   call's and ragged ones; it has no library call either, and is timed
+   beside its unfused composition (``F.linear``, the gate, ``F.linear``
+   in the working dtype: a yardstick of three calls, ``unfused_ms``, never
+   ``library_ms``) and, at the main path's four shapes, under every plan
+   the kernel takes (each as close to the twin, and bit-identical over
+   two calls). Flash attention and GEGLU carry a bf16 record beside the
+   f32 one in the JSON line.
 3. One request through the real CLI ``main(argv)``: a synthetic 10-s WAV
    (600 frames), 1000 DDIM steps, CFG 2.0, float32, random weights from
    seed 0. The CSV must hold 600 rows under the 32 ARKit names, finite and
@@ -85,8 +92,9 @@ Phases (any failure exits non-zero; there is no try/except around them):
 
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
-``plain_device_ms`` and ``library_device_ms`` on the card alone; flash
-attention's bf16 headline beside its f32 one) and
+``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
+``unfused_ms`` and ``unfused_device_ms`` beside them; flash attention's
+and GEGLU's bf16 headline beside the f32 one) and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -230,10 +238,10 @@ def bound(work, dtype):
 def kernel_cases():
     """(kernel name, label, dtype, thunks {kernel, plain[, library]}, work,
     headline) per check; headline is "f32" for the case the kernel's JSON
-    record holds, "bf16" for flash attention's bf16 record beside it, else
-    None. ``work`` counts bytes (each input read once, each output written
-    once), the FLOP of products and of elementwise work, and exp2, for
-    the bound."""
+    record holds, "bf16" for the bf16 record beside it (flash attention,
+    GEGLU), else None. ``work`` counts bytes (each input read once, each
+    output written once), the FLOP of products and of elementwise work,
+    and exp2, for the bound."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
@@ -282,16 +290,26 @@ def kernel_cases():
             label = f"{tag} {shape} G={g} eps={eps} {act} lengths {sorted(set(lengths))}"
             cases.append(("group_norm_masked", label, dt, fns,
                           {"bytes": 2 * n * isz + 8 * c + 4 * shape[0], "flop": 10 * n}, headline_tag(i == 1, tag)))
-        for i, shape in enumerate([(2, 600, 192), (1, 600, 192), (2, 37, 192)]):
+        # the UNet at 10 s, 60 s and 6 min (CFG-folded batch 2), the eval
+        # call (16 x 512), an unfolded 10-s call, and ragged
+        geglu = [(2, 600, 192), (2, 3600, 192), (2, 21600, 192), (16, 512, 192), (1, 600, 192), (2, 37, 192),
+                 (1, 1, 192)]
+        for i, shape in enumerate(geglu):
             x = randn(shape, 7, dt)
             w1, b1 = randn((1536, 192), 8, dt, 0.05), randn((1536,), 9, scale=0.1)
             w2, b2 = randn((192, 768), 10, dt, 0.05), randn((192,), 11, scale=0.1)
             m = shape[0] * shape[1]
             fns = {"kernel": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_kernel(x, w1, b1, w2, b2),
-                   "plain": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_plain(x, w1, b1, w2, b2)}
+                   "plain": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.geglu_ffn_plain(x, w1, b1, w2, b2),
+                   "unfused": unfused_geglu_thunk(x, w1, b1, w2, b2)}
+            if i < 4:  # the main path's shapes: every plan the kernel takes, forced
+                for plan in ffn.PLANS[dt]:
+                    fns[f"plan {plan[0]}x{plan[1]}"] = (lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2, plan=plan:
+                                                        ffn.geglu_ffn_kernel(x, w1, b1, w2, b2, _plan=plan))
             work = {"bytes": 2 * m * 192 * isz + 3 * 768 * 192 * isz + 4 * (1536 + 192),
                     "product_flop": 2 * m * 192 * 1536 + 2 * m * 768 * 192}
-            cases.append(("geglu_ffn", f"{tag} {shape}", dt, fns, work, headline_tag(i == 0, tag)))
+            label = f"{tag} {shape} plan {ffn.geglu_plan(m, dt)}"
+            cases.append(("geglu_ffn", label, dt, fns, work, tag if i == 0 else None))
         convs = [(3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999), (3, 8), (2, 8)]
         for i, (k, t_in) in enumerate(convs):
             x, w = randn((1, t_in, 512), 12, dt), randn((k, 512, 512), 13, dt, 0.03)
@@ -318,6 +336,20 @@ def kernel_cases():
 
 def headline_tag(first, tag):
     return "f32" if first and tag == "f32" else None
+
+
+def unfused_geglu_thunk(x, w1, b1, w2, b2):
+    """The feed-forward as three unfused calls in the working dtype
+    (``F.linear``, the gate ``a·gelu(g)``, ``F.linear``; f32 with TF32
+    off), a timing yardstick only (the port never calls it): its (rows,
+    1536) projection goes through device memory."""
+    b1d, b2d = b1.to(x.dtype), b2.to(x.dtype)
+
+    def run():
+        a, g = torch.nn.functional.linear(x, w1, b1d).chunk(2, dim=-1)
+        return torch.nn.functional.linear(a * torch.nn.functional.gelu(g), w2, b2d)
+
+    return run
 
 
 def sdpa_thunk(q, k, v, h, lengths):
@@ -351,23 +383,35 @@ def phase_kernels(record):
         err = (got.float() - ref.float()).abs().max().item()
         limit = BOUND[dt] * ref.float().abs().max().item()
         ok = err <= limit and np.isfinite(err)
+        for key in [k for k in fns if k.startswith("plan ")]:  # forced plans: as close, and bit-stable
+            a, b = fns[key](), fns[key]()
+            plan_err = (a.float() - ref.float()).abs().max().item()
+            check(plan_err <= limit and torch.equal(a, b), f"{name} {label} {key}: max abs err {plan_err} "
+                  f"(limit {limit}) or two calls differ")
         ms = timed(fns)
         bound_ms, bound_by = bound(work, dt)
         dev = {k: v["device"] for k, v in ms.items()}
         versus = "none" if "library" not in ms else (
             f"{dev['library']:.4f} ms (with enqueue {ms['library']['enqueue']:.4f}) "
             f"kernel/library {dev['kernel'] / dev['library']:.2f}")
+        extra = "".join(f" {k} {dev[k]:.4f} ms" for k in ms if k.startswith("plan "))
+        if "unfused" in ms:
+            extra = (f" unfused (F.linear, a*gelu(g), F.linear) {dev['unfused']:.4f} ms (with enqueue "
+                     f"{ms['unfused']['enqueue']:.4f}) kernel/unfused {dev['kernel'] / dev['unfused']:.2f}{extra}")
         print(f"{name:18s} {label:40s} max_abs_err {err:.3e} limit {limit:.3e} on the card alone: kernel "
               f"{dev['kernel']:.4f} ms (with enqueue {ms['kernel']['enqueue']:.4f}) plain {dev['plain']:.4f} ms "
-              f"library {versus} bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+              f"library {versus} bound {bound_ms:.4f} ms ({bound_by}){extra} {'ok' if ok else 'FAIL'}")
         check(ok, f"{name} {label}: max abs err {err} > limit {limit}")
         if headline:
-            # ms, plain_ms, library_ms: CUDA events around one call, the
-            # host's enqueue counted; device_ms and its kin: the card alone
+            # ms, plain_ms, library_ms, unfused_ms: CUDA events around one
+            # call, the host's enqueue counted; device_ms and its kin: the
+            # card alone
             library = ms.get("library", {})
             entry = dict(max_abs_err=err, ms=ms["kernel"]["enqueue"], plain_ms=ms["plain"]["enqueue"],
                          library_ms=library.get("enqueue"), device_ms=dev["kernel"], plain_device_ms=dev["plain"],
                          library_device_ms=library.get("device"), bound_ms=bound_ms, bound_by=bound_by, shape=label)
+            if "unfused" in ms:
+                entry.update(unfused_ms=ms["unfused"]["enqueue"], unfused_device_ms=dev["unfused"])
             if headline == "f32":
                 record[name].update(entry)
             else:

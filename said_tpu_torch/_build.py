@@ -34,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of the C entry points; each returns a cudaError_t code
 _SIGNATURES = {
-    # x, w1, b1, w2, b2, out, M, C, I, dtype, stream
-    "said_geglu_ffn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, out, M, C, I, dtype, tile_rows, cluster, stream
+    "said_geglu_ffn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, out, B, T_in, T_out, C_in, C_out, K, dtype, stream
     "said_strided_conv_gelu": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, lengths (NULL or (B,) int32), B, T, S, H, D, dtype, stream

@@ -59,24 +59,11 @@
 // filled by cp.async, so tile j+1 loads while tile j is multiplied, one
 // __syncthreads per tile. Keys past the valid length are filled with zeros
 // by the copy (V must not carry NaN into a p of 0). exp2 is ex2.approx.
-#include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
-#include <stdint.h>
 
 namespace said {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -108,39 +95,6 @@ struct F32Layout {
   static constexpr int kTile = kF32Keys * kStride;
   static constexpr size_t kSmem = sizeof(float) * 4 * kTile;  // two stages of K and V
 };
-
-// d += a·b, one m16n8k8 tile, tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x rounded to nearest (ties away) tf32, low 13 bits zero
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;
-}
-
-// x = hi + lo (+ a residue below 2^-22·|x|), both exact tf32 values
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a·b in 3xTF32: hi·hi + hi·lo + lo·hi, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4], float b0, float b1) {
-  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
@@ -316,72 +270,6 @@ static int launch_flash_f32(const void* q, const void* k, const void* v, void* o
 
 // ---------------------------------------------------------------- bf16: wgmma
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// makes this thread's shared-memory writes (st.shared, cp.async) visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// pins registers across an asynchronous wgmma: reads and writes stay on their side of the fence
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading byte offset
-// 16 (unused by these layouts), stride byte offset between 8-row groups,
-// swizzle mode (1 = 128-byte, 2 = 64-byte); each tile base is aligned to
-// its swizzle repeat, so the base offset field is 0
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t sbo_bytes, uint32_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(sbo_bytes >> 4) << 32) |
-         ((uint64_t)swizzle << 62);
-}
-
-// d (+)= A·B for one m64n128k16 tile: A and B from shared memory (descriptors)
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d += A·B for one m64n64k16 tile: A from registers, B (MN-major, transposed) from shared memory
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
-}
-
-// d += A·B for one m64n32k16 tile: A from registers, B (MN-major, transposed) from shared memory
-__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
-}
 template <int D>
 struct Bf16Cfg {
   static constexpr int kRows = 64;     // one warpgroup: wgmma's 64-row tile
@@ -396,20 +284,12 @@ struct Bf16Cfg {
   static constexpr size_t kSmem = kQBytes + 4 * kTileBytes + 1024;  // + slack to align the base
 };
 
-// byte offset of 16-byte chunk c of row r in a swizzled tile
-// (Swizzle<3,4,3> for 128-byte rows, Swizzle<2,4,3> for 64-byte rows)
+// byte offset of 16-byte chunk c of row r in a swizzled tile: 128-byte
+// rows at D = 64, 64-byte rows at D = 32
 template <int D>
 __device__ __forceinline__ int swizzled(int r, int c) {
-  if constexpr (D == 64) return r * 128 + ((c ^ (r & 7)) << 4);
-  else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-// bf16 pair, lo = a, hi = b, rounded to nearest; adds the two rounded values to sum
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b, float& sum) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
-  sum += __uint_as_float(u << 16) + __uint_as_float(u & 0xffff0000u);
-  return u;
+  if constexpr (D == 64) return swizzle128(r, c);
+  else return swizzle64(r, c);
 }
 
 template <int D>
@@ -499,7 +379,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bflo
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n128k16_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     if (k0 + C::kKeys > kv_len) {  // keys at or past kv_len (only in the last tile)
@@ -547,7 +427,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bflo
       else wgmma_m64n32k16_rs(o, pa[kk], desc_v + kk * (2 * C::kGroupBytes >> 4));
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk) fence_regs(pa[kk]);

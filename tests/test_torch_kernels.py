@@ -166,17 +166,44 @@ def test_group_norm_masked_kernel_refuses_bad_lengths(dev):
             norms.group_norm_masked_kernel(x, 32, w, w, bad)
 
 
-@pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("shape", [(2, 600, 192), (1, 37, 192)])
-def test_geglu_ffn_kernel(dev, dtype, shape):
+def _geglu_inputs(shape, dev, dtype, scale=1.0):
     c = shape[-1]
-    x = _randn(shape, 6, dev, dtype)
-    w1 = _randn((8 * c, c), 7, dev, dtype, 0.05)
-    b1 = _randn((8 * c,), 8, dev, torch.float32, 0.1)
-    w2 = _randn((c, 4 * c), 9, dev, dtype, 0.05)
-    b2 = _randn((c,), 10, dev, torch.float32, 0.1)
-    _assert_close(ffn.geglu_ffn_kernel(x, w1, b1, w2, b2),
-                  ffn.geglu_ffn_plain(x, w1, b1, w2, b2), dtype)
+    return (_randn(shape, 6, dev, dtype, scale), _randn((8 * c, c), 7, dev, dtype, 0.05),
+            _randn((8 * c,), 8, dev, torch.float32, 0.1), _randn((c, 4 * c), 9, dev, dtype, 0.05),
+            _randn((c,), 10, dev, torch.float32, 0.1))
+
+
+# (dtype, plan): the plan geglu_plan picks (None), and every plan the
+# kernel takes, forced
+_GEGLU_PLANS = [(dt, plan) for dt in _DTYPES for plan in (None, *ffn.PLANS[dt])]
+
+
+@pytest.mark.parametrize("dtype,plan", _GEGLU_PLANS)
+@pytest.mark.parametrize("shape", [(1, 1, 192), (1, 37, 192), (1, 63, 192), (1, 64, 192), (1, 65, 192),
+                                   (2, 600, 192), (2, 3600, 192), (2, 21600, 192)])
+@pytest.mark.parametrize("scale", [1.0, 30.0])  # 30: large sums, where accumulation drift would show
+def test_geglu_ffn_kernel(dev, dtype, plan, shape, scale):
+    """Against the plain twin, and bit-identical over two calls."""
+    args = _geglu_inputs(shape, dev, dtype, scale)
+    got = ffn.geglu_ffn_kernel(*args, _plan=plan)
+    _assert_close(got, ffn.geglu_ffn_plain(*args), dtype)
+    assert torch.equal(got, ffn.geglu_ffn_kernel(*args, _plan=plan))
+
+
+def test_geglu_ffn_kernel_refuses_bad_input(dev):
+    x, w1, b1, w2, b2 = _geglu_inputs((2, 40, 192), dev, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ffn.geglu_ffn_kernel(x.transpose(0, 1), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="w1"):
+        ffn.geglu_ffn_kernel(x, w1.to(torch.bfloat16), b1, w2, b2)
+    with pytest.raises(ValueError, match="w2"):
+        ffn.geglu_ffn_kernel(x.to(torch.bfloat16), w1.to(torch.bfloat16), b1, w2, b2)
+    with pytest.raises(ValueError, match="b1"):
+        ffn.geglu_ffn_kernel(x, w1, b1.to(torch.bfloat16), w2, b2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ffn.geglu_ffn_kernel(torch.empty(80 * 192 + 1, device=dev)[1:].view(80, 192), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="plan"):
+        ffn.geglu_ffn_kernel(x, w1, b1, w2, b2, _plan=(128, 1))  # two warpgroups: bf16 only
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)

@@ -199,15 +199,77 @@ def test_layer_norm_matches_jax(shape):
 # -------------------------------------------------------------------- ffn
 
 
-def test_geglu_ffn_matches_jax():
+@pytest.mark.parametrize("rows", [64, 600])  # 600: the 10-s clip, CFG-folded to batch 2
+def test_geglu_ffn_matches_jax(rows):
     c, inner = 192, 768
-    x = _rand((2, 64, c), 9)
+    x = _rand((2, rows, c), 9)
     w1, b1 = _rand((c, 2 * inner), 10, 0.05), _rand((2 * inner,), 11, 0.1)
     w2, b2 = _rand((inner, c), 12, 0.05), _rand((c,), 13, 0.1)
     want = geglu_ffn_pallas(*map(jnp.asarray, (x, w1, b1, w2, b2)), interpret=True)
     # the port takes the torch nn.Linear layout: w1 (2I, C), w2 (C, I)
     got = ffn.geglu_ffn(_t(x), _t(w1.T), _t(b1), _t(w2.T), _t(b2)).numpy()
     _close(got, want)
+
+
+@pytest.mark.parametrize("m,f32_plan,bf16_plan", [
+    (1200, (64, 4), (64, 4)),     # 10 s, CFG-folded: 19 row tiles of 64
+    (7200, (64, 1), (128, 2)),    # 60 s: 113 row tiles of 64, 57 of 128
+    (8192, (64, 1), (128, 2)),    # the eval call, 16 x 512
+    (43200, (64, 2), (128, 1)),   # 6 min: 675 / 338 row tiles
+    (65536, (64, 1), (128, 1)),
+])
+def test_geglu_plan(m, f32_plan, bf16_plan):
+    """The plan of least modelled time (waves x chunk time) at the main
+    path's row counts. From 1200 to 43200 rows each is also the fastest
+    plan measured on an H100 (chip_smoke.py phase 2 times every plan)."""
+    assert ffn.geglu_plan(m, torch.float32) == f32_plan
+    assert ffn.geglu_plan(m, torch.bfloat16) == bf16_plan
+    assert f32_plan in ffn.PLANS[torch.float32] and bf16_plan in ffn.PLANS[torch.bfloat16]
+
+
+def _tf32(x):
+    """x masked to tf32: the low 13 of f32's 23 mantissa bits cleared, as
+    the kernel's split does."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b from tf32 operands: one pass, or 3xTF32 (hi = tf32(x), lo =
+    tf32(x − hi), hi·hi + hi·lo + lo·hi; each tf32 product is exact in
+    f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _geglu_emulated(x, w1, b1, w2, b2, passes):
+    """The f32 kernel's arithmetic: the first product over all of C, the
+    gate in f32, the second product per chunk of 32 inner units, the
+    chunks joined by f32 adds."""
+    a, g = (_mm_tf32(x, w1.t(), passes) + b1).chunk(2, dim=-1)
+    y = a * torch.nn.functional.gelu(g)
+    out = b2.expand(x.shape[0], -1).clone()
+    for c0 in range(0, y.shape[-1], 32):
+        out += _mm_tf32(y[:, c0:c0 + 32], w2[:, c0:c0 + 32].t(), passes)
+    return out
+
+
+def test_geglu_3xtf32_holds_the_f32_bound():
+    """The card's f32 route runs both products as 3xTF32. Emulated on the
+    CPU at the main path's width and rows, it lands within 1e-5 of max
+    |plain|, ten times inside the kernel's f32 bound; single-pass TF32
+    does not hold the bound."""
+    x = _t(_rand((1200, 192), 20))
+    w1, b1 = _t(_rand((1536, 192), 21, 0.05)), _t(_rand((1536,), 22, 0.1))
+    w2, b2 = _t(_rand((192, 768), 23, 0.05)), _t(_rand((192,), 24, 0.1))
+    ref = ffn.geglu_ffn_plain(x, w1, b1, w2, b2)
+    bound = 1e-4 * ref.abs().max().item()
+    err3 = (_geglu_emulated(x, w1, b1, w2, b2, 3) - ref).abs().max().item()
+    err1 = (_geglu_emulated(x, w1, b1, w2, b2, 1) - ref).abs().max().item()
+    assert err3 <= bound / 10, f"3xTF32: {err3:.3g} > {bound / 10:.3g}"
+    assert err1 > bound, f"single-pass TF32: {err1:.3g} <= {bound:.3g}"
 
 
 # ------------------------------------------------------------------- conv
