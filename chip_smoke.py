@@ -22,11 +22,20 @@ Phases (any failure exits non-zero; there is no try/except around them):
    products over the tensor cores' peak, f32 as 3xTF32; elementwise FLOP
    over the f32 FMA peak; exp2 over the special-function rate; the
    largest binds).
-   GroupNorm runs at the UNet's 10-s, 60-s and 6-min shapes and the
-   encoder's conv_0 at a 32k-sample bucket. Flash attention runs at the UNet's and the
+   GroupNorm runs at the UNet's 10-s, 30-s, 60-s, 4096-frame and 6-min
+   shapes and the encoder's conv_0 at a 4-s clip and a 32k-sample
+   bucket; each case prints its plan and route (one launch of
+   ``csrc/group_norm.cu`` with its groups a block, cluster size and CTAs,
+   or the Triton split with its chunks), and at the UNet's batch-2 shapes
+   and the 4-s conv_0 every one-launch plan the kernel takes and the
+   split are forced and timed too (each as close to the twin, and
+   bit-identical over two calls): the data of the plan and of the
+   threshold between the two routes.
+   Flash attention runs at the UNet's and the
    encoder's widths at 60 s and 6 min (3600 and 21600 frames), ragged at
    2100, and with lengths [384, 200, 0]. The masked GroupNorm (length-
-   bucketed mode) runs at the UNet's eval-batch and 60-s bucketed shapes,
+   bucketed mode) runs at the UNet's eval-batch (every one-launch plan
+   forced too) and 60-s bucketed shapes,
    at the encoder's conv_0 shapes of the eval batch and of a 60-s clip,
    and ragged; no single PyTorch call computes it, so it has no library
    time. GEGLU runs at the UNet's 10-s, 60-s and 6-min shapes, the eval
@@ -152,9 +161,9 @@ FMA_FLOP_PER_S = 67e12
 EXP2_PER_S = 3.9e12
 
 KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file:line, function)
-    "group_norm": (norms.group_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
+    "group_norm": (norms.group_norm_kernel, "cuda", "said_tpu_torch/csrc/group_norm.cu",
                    "said_tpu/ops/pallas_norms.py:79", "group_norm_pallas"),
-    "group_norm_masked": (norms.group_norm_masked_kernel, "triton", "said_tpu_torch/ops/norms.py",
+    "group_norm_masked": (norms.group_norm_masked_kernel, "cuda", "said_tpu_torch/csrc/group_norm.cu",
                           "said_tpu/ops/pallas_norms.py:133", "group_norm_masked_pallas"),
     "layer_norm": (norms.layer_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
                    "said_tpu/ops/pallas_norms.py:441", "layer_norm_pallas"),
@@ -170,6 +179,10 @@ ALSO_REPLACES = {
     "group_norm_masked": "said_tpu/ops/pallas_norms.py:338 (group_norm_masked_pallas_blocked)",
     "flash_attention": "said_tpu/ops/pallas_attention.py:322 (_flash_tpu_packed_blocked)",
 }
+# GroupNorm's wrappers take one of two routes by the shape's plan
+# (norms.group_norm_plan): one launch of the CUDA kernel (the route above)
+# or, past the threshold, the Triton split in two launches
+SPLIT_ROUTE = {name: ("triton", "said_tpu_torch/ops/norms.py") for name in ("group_norm", "group_norm_masked")}
 
 
 def check(ok, message):
@@ -255,12 +268,16 @@ def kernel_cases():
                 fns["library"] = lambda x=x, w=w, b=b, c=c: torch.nn.functional.layer_norm(x, (c,), w, b, 1e-5)
             cases.append(("layer_norm", f"{tag} {shape}", dt, fns,
                           {"bytes": 2 * n * isz + 8 * c, "flop": 8 * n}, headline_tag(i == 0, tag)))
-        # the UNet at 10 s and 60 s (one launch) and 6 min (split), the
-        # encoder's conv_0 (split)
-        gn = [((2, 600, 192), 32, 1e-5, "silu"), ((2, 600, 192), 32, 1e-6, "none"),
-              ((1, 31999, 512), 512, 1e-5, "none"), ((2, 37, 192), 32, 1e-5, "silu"),
-              ((2, 3600, 192), 32, 1e-6, "none"), ((2, 21600, 192), 32, 1e-6, "none")]
-        for i, (shape, g, eps, act) in enumerate(gn):
+        # the UNet at 10, 30, 60 s, a 4096-frame bucket and 6 min, the
+        # encoder's conv_0 at a 4-s clip and a 32k-sample bucket; where the
+        # last flag is set, every one-launch plan and the split are forced
+        # and timed too
+        gn = [((2, 600, 192), 32, 1e-5, "silu", False), ((2, 600, 192), 32, 1e-6, "none", True),
+              ((1, 31999, 512), 512, 1e-5, "none", False), ((2, 37, 192), 32, 1e-5, "silu", False),
+              ((2, 3600, 192), 32, 1e-6, "none", True), ((2, 21600, 192), 32, 1e-6, "none", True),
+              ((2, 1800, 192), 32, 1e-6, "none", True), ((2, 4096, 192), 32, 1e-6, "none", True),
+              ((1, 12799, 512), 512, 1e-5, "none", True)]
+        for i, (shape, g, eps, act, every_plan) in enumerate(gn):
             c, n = shape[-1], int(np.prod(shape))
             x, w, b = randn(shape, 4, dt, 2.0, 30.0), randn((c,), 5), randn((c,), 6)
             fns = {"kernel": lambda x=x, g=g, w=w, b=b, eps=eps, act=act: norms.group_norm_kernel(x, g, w, b, eps, act),
@@ -269,7 +286,12 @@ def kernel_cases():
                 # F.group_norm takes (N, C, T): the (B, T, C) tensor's transposed view
                 fns["library"] = lambda x=x, g=g, w=w, b=b, eps=eps: torch.nn.functional.group_norm(
                     x.transpose(1, 2), g, w, b, eps)
-            cases.append(("group_norm", f"{tag} {shape} G={g} eps={eps} {act}", dt, fns,
+            if every_plan:
+                for plan in [*norms.cluster_plans(shape[1], c, g, dt), "split"]:
+                    key = "plan split" if plan == "split" else f"plan {plan[0]}x{plan[1]}"
+                    fns[key] = (lambda x=x, g=g, w=w, b=b, eps=eps, act=act, plan=plan:
+                                norms.group_norm_kernel(x, g, w, b, eps, act, _plan=plan))
+            cases.append(("group_norm", f"{tag} {shape} G={g} eps={eps} {act} {plan_label(shape, g, dt)}", dt, fns,
                           {"bytes": 2 * n * isz + 8 * c, "flop": 10 * n}, headline_tag(i == 1, tag)))
         # the UNet at the eval batch (CFG-doubled) and at a bucketed 60-s
         # clip; the encoder's conv_0 at the eval batch and a 60-s clip
@@ -287,7 +309,12 @@ def kernel_cases():
                    norms.group_norm_masked_kernel(x, g, w, b, lens, eps, act),
                    "plain": lambda x=x, g=g, w=w, b=b, lens=lens, eps=eps, act=act:
                    norms.group_norm_masked_plain(x, g, w, b, lens, eps, act)}
-            label = f"{tag} {shape} G={g} eps={eps} {act} lengths {sorted(set(lengths))}"
+            if shape == (16, 512, 192):  # the eval call: every one-launch plan, forced
+                for plan in norms.cluster_plans(shape[1], shape[2], g, dt):
+                    fns[f"plan {plan[0]}x{plan[1]}"] = (
+                        lambda x=x, g=g, w=w, b=b, lens=lens, eps=eps, act=act, plan=plan:
+                        norms.group_norm_masked_kernel(x, g, w, b, lens, eps, act, _plan=plan))
+            label = f"{tag} {shape} G={g} eps={eps} {act} lengths {sorted(set(lengths))} {plan_label(shape, g, dt)}"
             cases.append(("group_norm_masked", label, dt, fns,
                           {"bytes": 2 * n * isz + 8 * c + 4 * shape[0], "flop": 10 * n}, headline_tag(i == 1, tag)))
         # the UNet at 10 s, 60 s and 6 min (CFG-folded batch 2), the eval
@@ -336,6 +363,17 @@ def kernel_cases():
 
 def headline_tag(first, tag):
     return "f32" if first and tag == "f32" else None
+
+
+def plan_label(shape, num_groups, dtype):
+    """A GroupNorm case's plan and route: one launch (groups a block x
+    cluster size, CTAs) or the split (chunks)."""
+    b, t, c = shape
+    plan = norms.group_norm_plan(b, t, c, num_groups, dtype)
+    if plan.route == "cuda":
+        ctas = b * (num_groups // plan.groups) * plan.cluster
+        return f"[cuda one launch {plan.groups}x{plan.cluster}, {ctas} CTAs]"
+    return f"[triton split, {plan.chunks} chunks of {plan.frames}]"
 
 
 def unfused_geglu_thunk(x, w1, b1, w2, b2):
@@ -410,6 +448,9 @@ def phase_kernels(record):
             entry = dict(max_abs_err=err, ms=ms["kernel"]["enqueue"], plain_ms=ms["plain"]["enqueue"],
                          library_ms=library.get("enqueue"), device_ms=dev["kernel"], plain_device_ms=dev["plain"],
                          library_device_ms=library.get("device"), bound_ms=bound_ms, bound_by=bound_by, shape=label)
+            plans = {k[5:]: v for k, v in dev.items() if k.startswith("plan ")}
+            if plans:
+                entry["plan_device_ms"] = plans
             if "unfused" in ms:
                 entry.update(unfused_ms=ms["unfused"]["enqueue"], unfused_device_ms=dev["unfused"])
             if headline == "f32":
@@ -768,13 +809,18 @@ def main():
     norms.layer_norm_kernel(x, w, b)
     norms.group_norm_kernel(x, 32, w, b)
     norms.group_norm_masked_kernel(x, 32, w, b, torch.full((2,), 5, dtype=torch.int32, device=DEV))
+    x = randn((1, norms._SPLIT_MIN_T + 1, 192), 0)  # the split's two Triton kernels
+    norms.group_norm_masked_kernel(x, 32, w, b, torch.full((1,), 5, dtype=torch.int32, device=DEV))
     torch.cuda.synchronize()
-    print(f"Triton compile of the norm kernels: {time.perf_counter() - t0:.1f} s")
+    print(f"Triton compile of LayerNorm and the GroupNorm split, first GroupNorm launches: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     record = {name: {"name": name, "route": route, "source": src, "replaces": rep, "replaces_function": fn}
               for name, (_, route, src, rep, fn) in KERNELS.items()}
     for name, also in ALSO_REPLACES.items():
         record[name]["also_replaces"] = also
+    for name, (route, src) in SPLIT_ROUTE.items():
+        record[name].update(split_route=route, split_source=src)
     phase_kernels(record)
     phase_request(record, gpu_line)
     model, wave, latents = phase_card_vs_cpu()

@@ -32,6 +32,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes of the C entry points; each returns a cudaError_t code
 _SIGNATURES = {
     # x, w1, b1, w2, b2, out, M, C, I, dtype, tile_rows, cluster, stream
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "said_strided_conv_gelu": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, lengths (NULL or (B,) int32), B, T, S, H, D, dtype, stream
     "said_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, b, y, lengths (NULL or (B,) int32), B, T, C, G, eps, silu, dtype,
+    # groups a block, cluster size, stream
+    "said_group_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,24 +1,21 @@
 """LayerNorm and GroupNorm32(+SiLU), plain and masked, with f32
-statistics: routers, plain twins, and the Triton kernels for Hopper.
+statistics: routers, plain twins, and the kernels for Hopper.
 
 Ports ``said_tpu.ops.norms`` (routers ``layer_norm_f32`` :118,
 ``group_norm`` :69 and ``group_norm_masked`` :173) and replaces its
 Pallas kernels:
 
-- ``layer_norm_kernel`` replaces ``layer_norm_pallas``
+- ``layer_norm_kernel`` (Triton) replaces ``layer_norm_pallas``
   (said_tpu/ops/pallas_norms.py:441, K7).
 - ``group_norm_kernel`` replaces ``group_norm_pallas`` (:79, K3) and its
-  two-phase form ``group_norm_pallas_blocked`` (:249, K5). The split into
-  phases existed only because a long row overflows the TPU's VMEM; this
-  kernel streams any T.
+  two-phase form ``group_norm_pallas_blocked`` (:249, K5).
 - ``group_norm_masked_kernel`` replaces ``group_norm_masked_pallas``
   (:133, K4) and ``group_norm_masked_pallas_blocked`` (:338, K6): the
-  same kernel body with a per-row length, so the two statistics streams
-  stop at the row's real length while the normalise stream still covers
-  all T rows (padded rows hold the finite values the JAX version gives
-  them). Every caller builds its frame mask as ``arange(T) < len``, so a
-  (B,) length is the same function as K4's (B, T) mask on every input
-  the system makes.
+  same kernels with a per-row length, so the statistics stop at the
+  row's real length while every frame is normalised (padded rows hold
+  the finite values the JAX version gives them). Every caller builds its
+  frame mask as ``arange(T) < len``, so a (B,) length is the same
+  function as K4's (B, T) mask on every input the system makes.
 
 What bounds them on the card: device-memory bandwidth (about 10 flops
 per element). The UNet's (2, 600, 192) tensor is 0.9 MB in f32, so at
@@ -27,49 +24,50 @@ the main path's short sizes launch latency dominates; the encoder's
 (1, 204799, 512) is 420 MB, where only the bytes count.
 
 LayerNorm is one program per block of rows with the whole (padded) row
-in registers. GroupNorm's programs own a block of groups, with lanes
-across channels, so each row of a tile is one contiguous run of channels
-and the loads coalesce for both layouts (6 channels per group at the
-UNet, 1 at the encoder); per-group sums come from per-channel sums by a
-small one-hot reduction inside the program. The variance is always a
-two-pass Σ(x−mean)² about a local mean, never E[x²]−mean². The host
-picks one of two plans from the shape alone (``group_norm_plan``):
+in registers. GroupNorm's variance is always a two-pass Σ(x−mean)² about
+a mean, never E[x²]−mean². The host picks one of two routes from the
+shape alone (``group_norm_plan``):
 
-- one launch, one program per (batch, block of groups), which streams
-  its rows three times (sum, centred squares, normalise). One program per
-  row fills too little of the card on a long row (16 programs at C = 512
-  or at the UNet's (2, T, 192)), but up to T = 4096 (the UNet from 10 s
-  to a bucketed 60-s clip, the eval batch) the denoise step is bound by
-  the host's launches, and the split's second launch costs the step more
-  host time than the device time it saves (on an H100, in turns at 1800
-  and 3600 frames: one launch was the faster step in 6 of 6 and 4 of 6
-  pairs);
+- one launch of the CUDA C++ kernel ``csrc/group_norm.cu`` (its source
+  note says how), for rows up to ``_SPLIT_MIN_T`` frames whose slice
+  fits a cluster's shared memory: a thread-block cluster per (batch,
+  block of groups), its CTAs splitting T, each reading its frames into
+  shared memory once; per-group sums, then centred squares, are joined
+  across the cluster through distributed shared memory in rank order, and
+  y is written from shared memory. x is read once and y written once.
+  The plan's groups a block and cluster size put 64 CTAs on the card
+  at the UNet's batch of 2, in clusters of 4 (f32) or 8 (bf16), and
+  clusters of 1 where the batch alone fills it;
+  ``group_norm_cluster_plain`` is the plain twin of its arithmetic.
 - split, for longer rows (the UNet at 6 min, the encoder's conv_0),
-  where the device time binds: T is cut into chunks so that about 1024
-  programs run (B × group blocks × chunks). Stage 1 reads each chunk once
-  and writes its count, sum and M2 about its own mean per group to a
-  small f32 scratch (each 128-frame tile is two-pass in registers, tiles
+  two Triton launches: T is cut into chunks so that about 1024 programs
+  run (B × group blocks × chunks). Stage 1 reads each chunk once and
+  writes its count, sum and M2 about its own mean per group to a small
+  f32 scratch (each 128-frame tile is two-pass in registers, tiles
   Chan-combined in order; with lengths the count stops at the row's real
   length, and a chunk wholly past it has count 0). Stage 2 combines the
   partials of its (batch, group block) in a fixed order with Chan's
   formula, as K5/K6 do (``_group_stats_combine``), then normalises its own
   chunk of every frame, padded frames included. x is read twice and y
-  written once, no atomics: the result is the same bits on every call.
-  ``group_norm_chunked_plain`` is the plain twin of this arithmetic.
+  written once. ``group_norm_chunked_plain`` is the plain twin of this
+  arithmetic.
 
+Neither route uses atomics: the result is the same bits on every call.
 Routers: a CPU tensor runs the plain twin; any other tensor goes to the
 kernel, whose wrapper raises unless it is a contiguous CUDA tensor of a
-supported dtype. Triton is imported on the first launch only, so this
-module imports where Triton is absent. (No ``from __future__ import
-annotations`` here: Triton reads the kernels' annotations as written.)
+supported dtype. Triton is imported, and the CUDA library built, on the
+first launch only, so this module imports where neither is present. (No
+``from __future__ import annotations`` here: Triton reads the kernels'
+annotations as written.)
 """
 
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
-from said_tpu_torch._build import BUILD_ROOT
+from said_tpu_torch import _build
 
 # triton.language, bound by ``_kernels()`` on the first launch. The kernel
 # bodies below resolve ``tl`` from this module's globals when Triton
@@ -187,6 +185,53 @@ def group_norm_chunked_plain(
     return out.to(x.dtype)
 
 
+def group_norm_cluster_plain(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+    lengths: torch.Tensor | None = None,
+    cluster: int = 8,
+) -> torch.Tensor:
+    """The one-launch GroupNorm kernel's arithmetic in plain PyTorch, for
+    the tests (no path runs it). T is cut into ``cluster`` slices of
+    ceil(T / cluster) frames, one a CTA (the last ones short or empty).
+    Per (batch, slice, group): the sum of the real elements (frames
+    ``t < lengths[b]``, all frames without lengths); the slices' sums are
+    added in rank order and divided by n = max(len·C/G, 1): the mean. Then
+    each slice's Σ(x − mean)² over its real elements, added in rank order
+    and divided by n: the variance. Every frame, padded ones included, is
+    normalised with them."""
+    b, t, c = x.shape
+    g = num_groups
+    frames = -(-t // cluster)
+    pad = frames * cluster - t
+    real = torch.ones((b, t), device=x.device)
+    if lengths is not None:
+        lens = lengths.to(device=x.device, dtype=torch.int64)
+        real = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).float()
+    n = (real.sum(dim=1) * (c // g)).clamp(min=1.0)[:, None]  # (b, 1)
+    xf = x.float().reshape(b, t, g, c // g)
+    xk = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad)).reshape(b, cluster, frames, g, c // g)
+    mk = torch.nn.functional.pad(real, (0, pad)).reshape(b, cluster, frames, 1, 1)
+
+    def join(per_rank):  # (b, cluster, g), added in rank order
+        total = per_rank[:, 0]
+        for q in range(1, cluster):
+            total = total + per_rank[:, q]
+        return total
+
+    mean = join((xk * mk).sum(dim=(2, 4))) / n  # (b, g)
+    var = join((((xk - mean[:, None, None, :, None]) * mk) ** 2).sum(dim=(2, 4))) / n
+    out = ((xf - mean[:, None, :, None]) / torch.sqrt(var + eps)[:, None, :, None]).reshape(b, t, c)
+    out = out * weight.float() + bias.float()
+    if act == "silu":
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------- routers
 
 
@@ -207,7 +252,7 @@ def group_norm(
     eps: float = 1e-5,
     act: str = "none",
 ) -> torch.Tensor:
-    """GroupNorm(+SiLU) router: plain twin on the CPU, the Triton kernel
+    """GroupNorm(+SiLU) router: plain twin on the CPU, the kernels
     otherwise."""
     if x.device.type == "cpu":
         return group_norm_plain(x, num_groups, weight, bias, eps, act)
@@ -224,7 +269,7 @@ def group_norm_masked(
     act: str = "none",
 ) -> torch.Tensor:
     """Masked GroupNorm(+SiLU) router, (B,) real lengths: plain twin on
-    the CPU, the Triton kernel otherwise."""
+    the CPU, the kernels otherwise."""
     if x.device.type == "cpu":
         return group_norm_masked_plain(x, num_groups, weight, bias, lengths, eps, act)
     return group_norm_masked_kernel(x, num_groups, weight, bias, lengths, eps, act)
@@ -251,64 +296,6 @@ def _layer_norm_fwd(
     b = tl.load(B + cols, mask=cmask, other=0.0)
     y = d * rstd[:, None] * w[None, :] + b[None, :]
     tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
-
-
-def _group_norm_fwd(
-    X, W, B, Y, L, T, C, G, cg, n_gblocks, eps,
-    SILU: "tl.constexpr", MASKED: "tl.constexpr", GB: "tl.constexpr",
-    CG_P: "tl.constexpr", BLOCK_T: "tl.constexpr",
-):
-    pid = tl.program_id(0)
-    batch = pid // n_gblocks
-    g0 = (pid % n_gblocks) * GB
-    j = tl.arange(0, GB * CG_P)
-    gi = j // CG_P
-    ci = j % CG_P
-    cmask = (ci < cg) & (g0 + gi < G)
-    ch = (g0 + gi) * cg + ci
-    # same[r, s]: lanes r and s hold channels of the same (real) group
-    same = (gi[:, None] == gi[None, :]) & cmask[None, :]
-    base = batch.to(tl.int64) * T * C
-    if MASKED:
-        # the statistics streams stop at this row's real length
-        t_stat = tl.maximum(tl.minimum(tl.load(L + batch), T), 0)
-        n = tl.maximum(t_stat * cg, 1)
-    else:
-        t_stat = T
-        n = T * cg
-
-    acc = tl.zeros((BLOCK_T, GB * CG_P), dtype=tl.float32)
-    for t0 in range(0, t_stat, BLOCK_T):
-        t = t0 + tl.arange(0, BLOCK_T)
-        mask = (t < t_stat)[:, None] & cmask[None, :]
-        offs = base + t.to(tl.int64)[:, None] * C + ch[None, :]
-        acc += tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-    colsum = tl.sum(acc, axis=0)
-    mean = tl.sum(tl.where(same, colsum[None, :], 0.0), axis=1) / n
-
-    acc = tl.zeros((BLOCK_T, GB * CG_P), dtype=tl.float32)
-    for t0 in range(0, t_stat, BLOCK_T):
-        t = t0 + tl.arange(0, BLOCK_T)
-        mask = (t < t_stat)[:, None] & cmask[None, :]
-        offs = base + t.to(tl.int64)[:, None] * C + ch[None, :]
-        x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-        d = tl.where(mask, x - mean[None, :], 0.0)
-        acc += d * d
-    colsq = tl.sum(acc, axis=0)
-    var = tl.sum(tl.where(same, colsq[None, :], 0.0), axis=1) / n
-    rstd = 1.0 / tl.sqrt(var + eps)
-
-    w = tl.load(W + ch, mask=cmask, other=0.0)
-    b = tl.load(B + ch, mask=cmask, other=0.0)
-    for t0 in range(0, T, BLOCK_T):
-        t = t0 + tl.arange(0, BLOCK_T)
-        mask = (t < T)[:, None] & cmask[None, :]
-        offs = base + t.to(tl.int64)[:, None] * C + ch[None, :]
-        x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-        y = (x - mean[None, :]) * rstd[None, :] * w[None, :] + b[None, :]
-        if SILU:
-            y = y / (1.0 + tl.exp(-y))
-        tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
 
 
 def _group_norm_stats(
@@ -409,51 +396,141 @@ def _group_norm_apply(
 def _kernels():
     global tl
     # Triton's compile cache goes beside the nvcc build, inside the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT / "triton"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_ROOT / "triton"))
     import triton
     import triton.language
 
     tl = triton.language
-    return (triton.jit(_layer_norm_fwd), triton.jit(_group_norm_fwd),
-            triton.jit(_group_norm_stats), triton.jit(_group_norm_apply))
+    return triton.jit(_layer_norm_fwd), triton.jit(_group_norm_stats), triton.jit(_group_norm_apply)
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-# GroupNorm plans: rows up to _SPLIT_MIN_T frames run the single-launch
-# body (see the module note); longer rows are cut so that about
-# _TARGET_PROGRAMS programs run (8 per SM of an H100's 132), at most
-# _MAX_CHUNKS chunks per row
+# GroupNorm plans. Rows up to _SPLIT_MIN_T frames run the one-launch CUDA
+# kernel where a cluster's shared memory holds the slice; longer rows are
+# split, cut so that about _TARGET_PROGRAMS programs run (8 per SM of an
+# H100's 132), at most _MAX_CHUNKS chunks per row. The threshold, from
+# H100 runs (PERF.md §6): up to 4096 frames the step's GroupNorm device
+# time is within 3–11% of the split's at the UNet's batch of 2 (the split
+# ahead) and 23% below it at the eval batch, and one launch saves a launch
+# a call on steps that wait on the host; at 21600 frames one launch was
+# not faster in the 6-min step in both dtypes.
 _SPLIT_MIN_T = 4096
 _TARGET_PROGRAMS = 1024
 _MAX_CHUNKS = 128
+# The one-launch kernel (csrc/group_norm.cu: kGnThreads, kGnSmemLimit): its
+# threads a CTA, the shared memory a CTA may opt in to on sm_90, the
+# cluster sizes it takes (16 is past the portable 8), blocks of at most
+# _MAX_BLOCK_CHANNELS channels.
+_GN_THREADS = 256
+_SMEM_LIMIT = 232448
+_CLUSTERS = (1, 2, 4, 8, 16)
+_MAX_BLOCK_CHANNELS = 64
+# The plan's constants, read from the per-plan times of chip_smoke.py
+# phase 2 on an H100 (PERF.md §6): without clusters, channel runs of at
+# least _FILL_RUN_BYTES and blocks enough for _FILL_CTAS CTAs; with
+# clusters, runs of at least _CLUSTER_RUN_BYTES and _CLUSTER_CTAS CTAs (a
+# cluster's barriers cost more than spreading further saves).
+_FILL_CTAS = 128
+_FILL_RUN_BYTES = 48
+_CLUSTER_CTAS = 64
+_CLUSTER_RUN_BYTES = 96
+
+
+class GroupNormPlan(NamedTuple):
+    """How a GroupNorm call runs, from its shape alone.
+
+    ``route`` "cuda": one launch of ``csrc/group_norm.cu``, ``groups``
+    groups a block, clusters of ``cluster`` CTAs, ``frames`` (ceil(T /
+    cluster)) frames a CTA, ``chunks`` 1. ``route`` "triton": the split,
+    ``groups`` groups a program, ``chunks`` chunks of ``frames`` frames a
+    row (whole 128-frame tiles; one chunk where the batch alone fills the
+    card), ``cluster`` 1.
+    """
+
+    route: str
+    groups: int
+    cluster: int
+    frames: int
+    chunks: int
 
 
 @functools.cache
 def _group_geometry(c: int, num_groups: int) -> tuple[int, int, int, int, int]:
-    """(channels per group, its power of two, groups per program, group
-    blocks, frames per tile): lanes span >= 32 channels, tiles 4096 lanes."""
+    """The split's (channels per group, its power of two, groups per
+    program, group blocks, frames per tile): lanes span >= 32 channels,
+    tiles 4096 lanes."""
     cg = c // num_groups
     cg_p = _next_pow2(cg)
     gb = max(1, 32 // cg_p)
     return cg, cg_p, gb, -(-num_groups // gb), max(1, 4096 // (gb * cg_p))
 
 
+def cta_smem_bytes(frames: int, channels: int, groups: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA of the one-launch kernel: its
+    frames of the block in x's dtype, the threads' partial sums (one
+    16-byte chunk of f32 a thread and element), per-group sums and
+    statistics (``group_norm_smem`` in the source)."""
+    esize = torch.finfo(dtype).bits // 8
+    return frames * channels * esize + _GN_THREADS * (16 // esize) * 4 + 16 * groups
+
+
+@functools.cache
+def cluster_plans(t: int, c: int, num_groups: int, dtype: torch.dtype) -> tuple[tuple[int, int], ...]:
+    """Every (groups a block, cluster size) the one-launch kernel takes at
+    T frames: groups a block a power of two dividing G whose channels are
+    whole 16-byte chunks (so every load and store is 16 bytes and aligned)
+    and at most _MAX_BLOCK_CHANNELS, and a cluster whose CTAs' slices fit
+    their shared memory."""
+    esize = torch.finfo(dtype).bits // 8
+    cg = c // num_groups
+    plans = []
+    gb = 1
+    while gb <= num_groups:
+        w = gb * cg
+        if num_groups % gb == 0 and (w * esize) % 16 == 0 and w <= _MAX_BLOCK_CHANNELS:
+            plans += [(gb, cl) for cl in _CLUSTERS if cta_smem_bytes(-(-t // cl), w, gb, dtype) <= _SMEM_LIMIT]
+        gb *= 2
+    return tuple(plans)
+
+
 @functools.cache  # on the host path of every call; a few shapes per process
-def group_norm_plan(b: int, t: int, c: int, num_groups: int) -> tuple[int, int]:
-    """How the GroupNorm kernels cut T, from the shape alone: (number of
-    chunks, frames per chunk). One chunk is the single-launch body; more
-    is the two-stage split, chunks whole tiles long."""
-    *_, n_gblocks, block_t = _group_geometry(c, num_groups)
-    programs = b * n_gblocks
-    if t <= _SPLIT_MIN_T or programs >= _TARGET_PROGRAMS:
-        return 1, t
-    want = min(_MAX_CHUNKS, -(-_TARGET_PROGRAMS // programs))
+def group_norm_plan(b: int, t: int, c: int, num_groups: int, dtype: torch.dtype = torch.float32) -> GroupNormPlan:
+    """The plan of a (b, t, c) GroupNorm with ``num_groups`` groups in
+    ``dtype``. One launch up to _SPLIT_MIN_T frames where the kernel takes
+    the shape: clusters of 1 and the widest blocks with channel runs of at
+    least _FILL_RUN_BYTES whose count alone puts _FILL_CTAS CTAs on the
+    card, where the batch allows; else the fewest groups a block whose
+    channel run is at least _CLUSTER_RUN_BYTES, and the smallest cluster
+    that fits and makes _CLUSTER_CTAS CTAs (else the largest that fits).
+    Otherwise the split."""
+    plans = cluster_plans(t, c, num_groups, dtype) if t <= _SPLIT_MIN_T else ()
+    if not plans:
+        return split_plan(b, t, c, num_groups)
+    run = (c // num_groups) * torch.finfo(dtype).bits // 8  # bytes of one group's channels
+    unclustered = [gb for gb, cl in plans
+                   if cl == 1 and gb * run >= _FILL_RUN_BYTES and b * (num_groups // gb) >= _FILL_CTAS]
+    if unclustered:
+        return GroupNormPlan("cuda", max(unclustered), 1, t, 1)
+    widths = sorted({gb for gb, _ in plans})
+    gb = next((g for g in widths if g * run >= _CLUSTER_RUN_BYTES), widths[-1])
+    fits = [cl for g, cl in plans if g == gb]
+    cl = next((cl for cl in fits if b * (num_groups // gb) * cl >= _CLUSTER_CTAS), fits[-1])
+    return GroupNormPlan("cuda", gb, cl, -(-t // cl), 1)
+
+
+@functools.cache
+def split_plan(b: int, t: int, c: int, num_groups: int) -> GroupNormPlan:
+    """The split's plan: chunks of whole tiles, enough for about
+    _TARGET_PROGRAMS programs and at most _MAX_CHUNKS (one where the batch
+    alone fills the card)."""
+    *_, gb, n_gblocks, block_t = _group_geometry(c, num_groups)
+    want = max(1, min(_MAX_CHUNKS, -(-_TARGET_PROGRAMS // (b * n_gblocks))))
     per_chunk = -(-t // want)
     chunk_t = -(-per_chunk // block_t) * block_t
-    return -(-t // chunk_t), chunk_t
+    return GroupNormPlan("triton", gb, 1, chunk_t, -(-t // chunk_t))
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, name: str) -> int:
@@ -475,7 +552,7 @@ def layer_norm_kernel(
 ) -> torch.Tensor:
     """Triton LayerNorm over the last axis of a contiguous CUDA tensor."""
     c = _check(x, weight, bias, "layer_norm_kernel")
-    ln, *_ = _kernels()
+    ln, _, _ = _kernels()
     y = torch.empty_like(x)
     n_rows = x.numel() // c
     block_c = _next_pow2(c)
@@ -490,31 +567,48 @@ def layer_norm_kernel(
 layer_norm_kernel.launches = 0
 
 
-def _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name):
+def _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name, plan):
     c = _check(x, weight, bias, name)
     if x.ndim != 3 or c % num_groups or x.shape[1] == 0:
         raise ValueError(f"{name}: needs (B, T>0, C) with C % G == 0, got {tuple(x.shape)}, G={num_groups}")
     if act not in ("none", "silu"):
         raise ValueError(f"{name}: act {act!r} not supported")
-    _, gn, stats, apply = _kernels()
     b, t, _ = x.shape
-    cg, cg_p, gb, n_gblocks, block_t = _group_geometry(c, num_groups)
-    n_chunks, chunk_t = group_norm_plan(b, t, c, num_groups)
+    if plan is None:
+        plan = group_norm_plan(b, t, c, num_groups, x.dtype)
+    elif plan == "split":
+        plan = split_plan(b, t, c, num_groups)
+    else:
+        allowed = cluster_plans(t, c, num_groups, x.dtype)
+        if tuple(plan) not in allowed:
+            raise ValueError(f"{name}: plan {plan} not 'split' or one of {allowed} for {tuple(x.shape)} {x.dtype}")
+        plan = GroupNormPlan("cuda", plan[0], plan[1], -(-t // plan[1]), 1)
     y = torch.empty_like(x)
+    if plan.route == "cuda":
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: x must start on a 16-byte boundary")
+        if x.device.index != torch.cuda.current_device():
+            raise ValueError(f"{name}: input is on {x.device}, not the current device")
+        err = _build.library().said_group_norm(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), b, t, c, num_groups, eps, int(act == "silu"),
+            _build.DTYPE_CODE[x.dtype], plan.groups, plan.cluster, torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, name)
+        return y
+    _, stats, apply = _kernels()
+    cg, cg_p, gb, n_gblocks, block_t = _group_geometry(c, num_groups)
     # unmasked: L is never read (MASKED is a compile-time False)
     lens = x if lengths is None else lengths
     tile = dict(GB=gb, CG_P=cg_p, BLOCK_T=block_t, num_warps=4)
-    if n_chunks == 1:
-        gn[(b * n_gblocks,)](x, weight, bias, y, lens, t, c, num_groups, cg, n_gblocks, eps,
-                             SILU=act == "silu", MASKED=lengths is not None, **tile)
-        return y
-    plane = b * num_groups * n_chunks
+    plane = b * num_groups * plan.chunks
     partials = torch.empty((3, plane), dtype=torch.float32, device=x.device)
-    grid = (n_chunks, b * n_gblocks)
-    stats[grid](x, lens, partials, t, c, num_groups, cg, n_gblocks, n_chunks, chunk_t, plane,
+    grid = (plan.chunks, b * n_gblocks)
+    # Triton's launcher raises on a failed cuLaunchKernel.
+    stats[grid](x, lens, partials, t, c, num_groups, cg, n_gblocks, plan.chunks, plan.frames, plane,
                 MASKED=lengths is not None, **tile)
-    apply[grid](x, weight, bias, y, partials, t, c, num_groups, cg, n_gblocks, n_chunks, chunk_t, plane, eps,
-                SILU=act == "silu", NCH_P=_next_pow2(n_chunks), **tile)
+    apply[grid](x, weight, bias, y, partials, t, c, num_groups, cg, n_gblocks, plan.chunks, plan.frames, plane, eps,
+                SILU=act == "silu", NCH_P=_next_pow2(plan.chunks), **tile)
     return y
 
 
@@ -525,9 +619,14 @@ def group_norm_kernel(
     bias: torch.Tensor,
     eps: float = 1e-5,
     act: str = "none",
+    *,
+    _plan: tuple[int, int] | str | None = None,
 ) -> torch.Tensor:
-    """Triton GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA tensor."""
-    y = _launch_group_norm(x, num_groups, weight, bias, None, eps, act, "group_norm_kernel")
+    """GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA tensor, by the
+    route ``group_norm_plan`` picks. ``_plan`` forces a one-launch plan of
+    ``cluster_plans`` (groups a block, cluster size) or "split", for tests
+    and timing only."""
+    y = _launch_group_norm(x, num_groups, weight, bias, None, eps, act, "group_norm_kernel", _plan)
     group_norm_kernel.launches += 1
     return y
 
@@ -543,17 +642,20 @@ def group_norm_masked_kernel(
     lengths: torch.Tensor,
     eps: float = 1e-5,
     act: str = "none",
+    *,
+    _plan: tuple[int, int] | str | None = None,
 ) -> torch.Tensor:
-    """Triton masked GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA
-    tensor; ``lengths`` a contiguous (B,) int32 tensor on the same device
-    (statistics over frames t < lengths[b], count clamped to ≥ 1)."""
+    """Masked GroupNorm(+SiLU) over a contiguous (B, T, C) CUDA tensor;
+    ``lengths`` a contiguous (B,) int32 tensor on the same device
+    (statistics over frames t < lengths[b], count clamped to ≥ 1).
+    Route and ``_plan`` as ``group_norm_kernel``."""
     name = "group_norm_masked_kernel"
     _check(x, weight, bias, name)
     if (lengths.dtype != torch.int32 or lengths.ndim != 1 or lengths.shape[0] != x.shape[0]
             or lengths.device != x.device or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be a contiguous ({x.shape[0]},) int32 tensor on {x.device}, "
                          f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
-    y = _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name)
+    y = _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name, _plan)
     group_norm_masked_kernel.launches += 1
     return y
 

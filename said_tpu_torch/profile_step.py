@@ -65,7 +65,8 @@ LONG_S, LONG_STEPS, LONG_PROFILE_STEPS = 360.0, 30, 5
 FAMILIES = (
     ("flash_attention", "flash_attention (ours)"),
     ("geglu", "geglu_ffn (ours)"),
-    ("_group_norm", "group_norm (ours, plain or masked)"),  # _fwd, or _stats + _apply
+    # said::group_norm_kernel<…> (one launch), or the split's _group_norm_stats + _group_norm_apply
+    ("group_norm", "group_norm (ours, plain or masked)"),
     ("_layer_norm_fwd", "layer_norm (ours)"),
     ("strided_conv", "strided_conv_gelu (ours)"),
     ("gemm", "cuBLAS GEMM/GEMV"),

@@ -98,6 +98,104 @@ def test_group_norm_masked_kernel(dev, dtype, shape, groups, eps, act, lengths):
                   norms.group_norm_masked_plain(x, groups, w, b, lens, eps, act), dtype)
 
 
+# the one-launch kernel at the main path's batch-2 shapes (both UNet
+# widths, 37 frames ragged), the eval call's, the encoder's conv_0, and
+# 6 min (past the threshold: its plans only forced)
+_CLUSTER_SHAPES = [(2, 37, 192), (2, 600, 192), (2, 1800, 192), (2, 3600, 192), (2, 4096, 192), (2, 600, 384),
+                   (2, 3600, 384), (16, 512, 192), (1, 2559, 512), (1, 12799, 512), (2, 21600, 192)]
+
+
+def _gn_inputs(shape, dev, dtype, seed=3):
+    c = shape[-1]
+    return (_randn(shape, seed, dev, dtype, 2.0, 30.0), _randn((c,), seed + 1, dev, torch.float32),
+            _randn((c,), seed + 2, dev, torch.float32))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", _CLUSTER_SHAPES)
+def test_group_norm_kernel_every_plan(dev, shape, dtype, masked):
+    """Every plan the one-launch kernel takes, forced: against the plain
+    twin and the plain version of the cluster arithmetic, and
+    bit-identical over two calls."""
+    b, t, c = shape
+    g = 512 if c == 512 else 32
+    x, w, bias = _gn_inputs(shape, dev, dtype)
+    lens = torch.tensor([t, t // 3 + 1] * (b // 2) + [t] * (b % 2), dtype=torch.int32, device=dev) if masked else None
+    if masked:
+        ref = norms.group_norm_masked_plain(x, g, w, bias, lens, 1e-5, "silu")
+    else:
+        ref = norms.group_norm_plain(x, g, w, bias, 1e-5, "silu")
+    plans = norms.cluster_plans(t, c, g, dtype)
+    shipped = norms.group_norm_plan(b, t, c, g, dtype)
+    assert shipped.route == "triton" or (shipped.groups, shipped.cluster) in plans
+    for gb, cl in plans:
+        if masked:
+            run = lambda: norms.group_norm_masked_kernel(x, g, w, bias, lens, 1e-5, "silu", _plan=(gb, cl))  # noqa: E731
+        else:
+            run = lambda: norms.group_norm_kernel(x, g, w, bias, 1e-5, "silu", _plan=(gb, cl))  # noqa: E731
+        got = run()
+        _assert_close(got, ref, dtype)
+        _assert_close(got, norms.group_norm_cluster_plain(x, g, w, bias, 1e-5, "silu", lens, cl), dtype)
+        assert torch.equal(got, run()), f"plan {(gb, cl)}: two calls differ"
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("t", [1, 37, 1800, 4096])
+def test_group_norm_kernel_length_edges(dev, dtype, t):
+    """The shipped plan, plain and with lengths 0, 1, a CTA's slice edge
+    ± 1 and T (slices wholly past a length add nothing)."""
+    plan = norms.group_norm_plan(8, t, 192, 32, dtype)
+    assert plan.route == "cuda"
+    edge = plan.frames
+    lengths = [0, 1, max(edge - 1, 0), min(edge, t), min(edge + 1, t), t, t // 2, 2 * edge + 1]
+    x, w, bias = _gn_inputs((8, t, 192), dev, dtype, 30)
+    _assert_close(norms.group_norm_kernel(x, 32, w, bias, 1e-6, "none"),
+                  norms.group_norm_plain(x, 32, w, bias, 1e-6, "none"), dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = norms.group_norm_masked_kernel(x, 32, w, bias, lens, 1e-5, "silu")
+    _assert_close(got, norms.group_norm_masked_plain(x, 32, w, bias, lens, 1e-5, "silu"), dtype)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_group_norm_kernel_is_deterministic(dev, dtype, masked):
+    """No atomics in the one-launch kernel: two calls, the same bits."""
+    x, w, bias = _gn_inputs((2, 3600, 192), dev, dtype, 40)
+    assert norms.group_norm_plan(2, 3600, 192, 32, dtype).route == "cuda"
+    if masked:
+        lens = torch.tensor([3600, 1234], dtype=torch.int32, device=dev)
+        a, b = (norms.group_norm_masked_kernel(x, 32, w, bias, lens, 1e-6) for _ in range(2))
+    else:
+        a, b = (norms.group_norm_kernel(x, 32, w, bias, 1e-6) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+def test_group_norm_kernel_refuses_bad_input(dev):
+    """Bad input raises, and nothing falls back: no launch is counted."""
+    x, w, bias = _gn_inputs((2, 600, 192), dev, torch.float32)
+    lens = torch.tensor([600, 300], dtype=torch.int32, device=dev)
+    before = (norms.group_norm_kernel.launches, norms.group_norm_masked_kernel.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.group_norm_kernel(x.transpose(0, 1), 32, w, bias)
+    with pytest.raises(TypeError, match="dtype"):
+        norms.group_norm_kernel(x.half(), 32, w, bias)
+    with pytest.raises(TypeError, match="dtype"):
+        norms.group_norm_masked_kernel(x.double(), 32, w, bias, lens)
+    with pytest.raises(ValueError, match="lengths"):
+        norms.group_norm_masked_kernel(x, 32, w, bias, lens.long())
+    with pytest.raises(ValueError, match="plan"):
+        norms.group_norm_kernel(x, 32, w, bias, _plan=(3, 4))  # 3 does not divide 32
+    with pytest.raises(ValueError, match="plan"):
+        norms.group_norm_kernel(_gn_inputs((2, 4096, 384), dev, torch.float32)[0], 32, *_gn_inputs(
+            (2, 4096, 384), dev, torch.float32)[1:], _plan=(4, 1))  # 786 KB: past a CTA's shared memory
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(600 * 192 + 1, device=dev)
+        norms.group_norm_kernel(flat[1:].view(1, 600, 192), 32, w, bias)
+    assert (norms.group_norm_kernel.launches, norms.group_norm_masked_kernel.launches) == before
+
+
 @pytest.fixture
 def split_past_1024(monkeypatch):
     """The split plan for rows over 1024 frames, whatever the shipped
@@ -127,8 +225,9 @@ def test_group_norm_split_kernel(dev, split_past_1024, dtype, shape, groups, act
     """Rows split in the two-stage plan, against the plain twin and
     against the plain version of the chunked arithmetic itself."""
     b, t, c = shape
-    n_chunks, chunk_t = norms.group_norm_plan(b, t, c, groups)
-    assert n_chunks > 1
+    plan = norms.group_norm_plan(b, t, c, groups, dtype)
+    assert plan.route == "triton" and plan.chunks > 1
+    chunk_t = plan.frames
     x = _randn(shape, 3, dev, dtype, 2.0, 30.0)
     w = _randn((c,), 4, dev, torch.float32)
     bias = _randn((c,), 5, dev, torch.float32)

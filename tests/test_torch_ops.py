@@ -173,15 +173,16 @@ def test_group_norm_chunked_single_chunk_is_group_norm():
      ((2, 21600, 192), 32, True)],
 )
 def test_group_norm_plan(shape, groups, split):
-    """One launch up to 4096 frames (the UNet up to a bucketed 60-s clip,
-    whose steps are host-bound); otherwise chunks of whole 128-frame tiles,
-    enough of them for about 1024 programs and no more."""
+    """One launch of the CUDA kernel up to 4096 frames (the UNet up to a
+    bucketed 60-s clip); otherwise the split, chunks of whole 128-frame
+    tiles, enough of them for about 1024 programs and no more."""
     b, t, c = shape
-    n_chunks, chunk_t = norms.group_norm_plan(b, t, c, groups)
+    plan = norms.group_norm_plan(b, t, c, groups)
     if not split:
-        assert (n_chunks, chunk_t) == (1, t)
+        assert plan.route == "cuda" and plan.chunks == 1 and plan.cluster * plan.frames >= t
         return
-    assert n_chunks > 1 and chunk_t % 128 == 0
+    n_chunks, chunk_t = plan.chunks, plan.frames
+    assert plan.route == "triton" and n_chunks > 1 and chunk_t % 128 == 0
     assert (n_chunks - 1) * chunk_t < t <= n_chunks * chunk_t  # no empty chunk
     n_gblocks = norms._group_geometry(c, groups)[3]
     assert 256 <= b * n_gblocks * n_chunks <= 1024 + b * n_gblocks
