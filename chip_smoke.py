@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; there is no try/except around them):
 
 1. Environment: torch/CUDA versions, the card's name and power limit;
    build the CUDA C++ kernels from ``said_tpu_torch/csrc`` and compile the
-   Triton kernels, with their build times.
+   Triton kernels (the GroupNorm split), with their build times.
 2. Every kernel of the main paths against its plain PyTorch twin on the
    card, at the main paths' shapes and at ragged ones, in float32 and
    bfloat16: max |kernel − plain| ≤ 1e-4 · max|plain| (f32) or
@@ -22,6 +22,13 @@ Phases (any failure exits non-zero; there is no try/except around them):
    products over the tensor cores' peak, f32 as 3xTF32; elementwise FLOP
    over the f32 FMA peak; exp2 over the special-function rate; the
    largest binds).
+   LayerNorm runs at the UNet's 10-s, 60-s and 6-min shapes, the
+   encoder's at 10 s, 50 s and 5 min (feature projection and layers), and
+   ragged; each case prints its plan (lanes a row × 16-byte vectors a
+   lane, rows a block, blocks). The strided conv runs at the six 10-s
+   shapes of conv_1 … conv_6, the 60-s conv_1 and two ragged ones, each
+   with its route, beside the unfused ``F.gelu(F.conv1d(...))`` (cuDNN,
+   TF32 off in f32; ``unfused_ms``, a yardstick, never ``library_ms``).
    GroupNorm runs at the UNet's 10-s, 30-s, 60-s, 4096-frame and 6-min
    shapes and the encoder's conv_0 at a 4-s clip and a 32k-sample
    bucket; each case prints its plan and route (one launch of
@@ -44,8 +51,8 @@ Phases (any failure exits non-zero; there is no try/except around them):
    in the working dtype: a yardstick of three calls, ``unfused_ms``, never
    ``library_ms``) and, at the main path's four shapes, under every plan
    the kernel takes (each as close to the twin, and bit-identical over
-   two calls). Flash attention and GEGLU carry a bf16 record beside the
-   f32 one in the JSON line.
+   two calls). Flash attention, GEGLU and the strided conv carry a bf16
+   record beside the f32 one in the JSON line.
 3. One request through the real CLI ``main(argv)``: a synthetic 10-s WAV
    (600 frames), 1000 DDIM steps, CFG 2.0, float32, random weights from
    seed 0. The CSV must hold 600 rows under the 32 ARKit names, finite and
@@ -102,8 +109,9 @@ Phases (any failure exits non-zero; there is no try/except around them):
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
-``unfused_ms`` and ``unfused_device_ms`` beside them; flash attention's
-and GEGLU's bf16 headline beside the f32 one) and
+and the conv's ``unfused_ms`` and ``unfused_device_ms`` beside them;
+flash attention's, GEGLU's and the conv's bf16 headline beside the f32
+one) and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -165,7 +173,7 @@ KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file
                    "said_tpu/ops/pallas_norms.py:79", "group_norm_pallas"),
     "group_norm_masked": (norms.group_norm_masked_kernel, "cuda", "said_tpu_torch/csrc/group_norm.cu",
                           "said_tpu/ops/pallas_norms.py:133", "group_norm_masked_pallas"),
-    "layer_norm": (norms.layer_norm_kernel, "triton", "said_tpu_torch/ops/norms.py",
+    "layer_norm": (norms.layer_norm_kernel, "cuda", "said_tpu_torch/csrc/layer_norm.cu",
                    "said_tpu/ops/pallas_norms.py:441", "layer_norm_pallas"),
     "geglu_ffn": (ffn.geglu_ffn_kernel, "cuda", "said_tpu_torch/csrc/geglu_ffn.cu",
                   "said_tpu/ops/pallas_ffn.py:87", "geglu_ffn_pallas"),
@@ -179,6 +187,10 @@ ALSO_REPLACES = {
     "group_norm_masked": "said_tpu/ops/pallas_norms.py:338 (group_norm_masked_pallas_blocked)",
     "flash_attention": "said_tpu/ops/pallas_attention.py:322 (_flash_tpu_packed_blocked)",
 }
+# what each kernel's unfused yardstick computes (phase 2's "unfused" thunks;
+# f32 with TF32 off, so at the kernel's precision)
+UNFUSED = {"geglu_ffn": "F.linear, a*gelu(g), F.linear",
+           "strided_conv_gelu": "F.gelu(F.conv1d(x.transpose(1, 2), w, stride=2))"}
 # GroupNorm's wrappers take one of two routes by the shape's plan
 # (norms.group_norm_plan): one launch of the CUDA kernel (the route above)
 # or, past the threshold, the Triton split in two launches
@@ -259,14 +271,24 @@ def kernel_cases():
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
         isz = torch.finfo(dt).bits // 8
-        for i, shape in enumerate([(2, 600, 192), (1, 600, 512), (1, 600, 768), (2, 37, 192)]):
+        # the UNet at 10 s, 60 s and 6 min; the encoder's feature
+        # projection and layers at 10 s, 50 s and 5 min; ragged
+        ln = [(2, 600, 192), (1, 600, 512), (1, 600, 768), (2, 37, 192), (2, 3600, 192), (2, 21600, 192),
+              (1, 2999, 768), (1, 17999, 768)]
+        for i, shape in enumerate(ln):
             c, n = shape[-1], int(np.prod(shape))
+            plan = norms.layer_norm_plan(n // c, c, dt)
             x, w, b = randn(shape, 1, dt, 2.0, 0.5), randn((c,), 2), randn((c,), 3)
             fns = {"kernel": lambda x=x, w=w, b=b: norms.layer_norm_kernel(x, w, b, 1e-5),
                    "plain": lambda x=x, w=w, b=b: norms.layer_norm_plain(x, w, b, 1e-5)}
             if dt == torch.float32:
                 fns["library"] = lambda x=x, w=w, b=b, c=c: torch.nn.functional.layer_norm(x, (c,), w, b, 1e-5)
-            cases.append(("layer_norm", f"{tag} {shape}", dt, fns,
+            if shape[1] >= 600:  # the main path's shapes: other plans, forced
+                for lanes, per_block in ln_plans(n // c, c, dt):
+                    fns[f"plan {lanes}x{per_block}"] = (lambda x=x, w=w, b=b, p=(lanes, per_block):
+                                                      norms.layer_norm_kernel(x, w, b, 1e-5, _plan=p))
+            label = f"{tag} {shape} [{plan.route} {plan.lanes}x{plan.chunks}, {plan.rows} rows x {plan.blocks} blocks]"
+            cases.append(("layer_norm", label, dt, fns,
                           {"bytes": 2 * n * isz + 8 * c, "flop": 8 * n}, headline_tag(i == 0, tag)))
         # the UNet at 10, 30, 60 s, a 4096-frame bucket and 6 min, the
         # encoder's conv_0 at a 4-s clip and a 32k-sample bucket; where the
@@ -337,15 +359,25 @@ def kernel_cases():
                     "product_flop": 2 * m * 192 * 1536 + 2 * m * 768 * 192}
             label = f"{tag} {shape} plan {ffn.geglu_plan(m, dt)}"
             cases.append(("geglu_ffn", label, dt, fns, work, tag if i == 0 else None))
-        convs = [(3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999), (3, 8), (2, 8)]
+        # conv_1 … conv_6 of a 10-s clip, conv_1 of a 60-s clip, ragged
+        convs = [(3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999), (3, 191999), (3, 8), (2, 8)]
         for i, (k, t_in) in enumerate(convs):
             x, w = randn((1, t_in, 512), 12, dt), randn((k, 512, 512), 13, dt, 0.03)
             t_out = (t_in - k) // 2 + 1
-            fns = {"kernel": lambda x=x, w=w: conv.strided_conv_gelu_kernel(x, w),
-                   "plain": lambda x=x, w=w: conv.strided_conv_gelu_plain(x, w)}
+            packed, torch_w = conv.pack_weight(w), w.permute(2, 1, 0).contiguous()  # torch's (C_out, C_in, K)
+            fns = {"kernel": lambda x=x, w=packed: conv.strided_conv_gelu_kernel(x, w),
+                   "plain": lambda x=x, w=w: conv.strided_conv_gelu_plain(x, w),
+                   "unfused": lambda x=x, w=torch_w: torch.nn.functional.gelu(
+                       torch.nn.functional.conv1d(x.transpose(1, 2), w, stride=2))}
             work = {"bytes": (t_in + t_out) * 512 * isz + k * 512 * 512 * isz,
                     "product_flop": 2 * t_out * k * 512 * 512}
-            cases.append(("strided_conv_gelu", f"{tag} K={k} T_in={t_in}", dt, fns, work, headline_tag(i == 0, tag)))
+            if i < 6:  # the six 10-s shapes: every split of the contraction, forced
+                for split in conv.SPLITS:
+                    fns[f"plan split {split}"] = (lambda x=x, w=packed, split=split:
+                                                  conv.strided_conv_gelu_kernel(x, w, _split=split))
+            plan = conv.conv_plan(t_out, 512, 512, dt)
+            label = f"{tag} K={k} T_in={t_in} [{plan.route}, split {plan.split}, {plan.blocks} blocks]"
+            cases.append(("strided_conv_gelu", label, dt, fns, work, tag if i == 0 else None))
         flash = [(2, 3600, 6, 32, None), (1, 3600, 12, 64, None), (2, 21600, 6, 32, None),
                  (1, 21600, 12, 64, None), (2, 2100, 6, 32, None), (3, 384, 6, 32, [384, 200, 0])]
         for i, (b, t, h, d, lengths) in enumerate(flash):
@@ -359,6 +391,22 @@ def kernel_cases():
             label = f"{tag} ({b}, {t}, {h}x{d})" + ("" if lengths is None else f" lengths {lengths}")
             cases.append(("flash_attention", label, dt, fns, work, tag if i == 0 else None))
     return cases
+
+
+def ln_plans(rows, c, dtype):
+    """LayerNorm plans (lanes a row, rows a block) beside the chosen one:
+    half and twice its lanes, at 64, 128 and 256 threads a block, where
+    the kernel takes them."""
+    chosen = norms.layer_norm_plan(rows, c, dtype).lanes
+    plans = []
+    for lanes in {chosen // 2, chosen, chosen * 2} - {0}:
+        for threads in (64, 128, 256):
+            try:
+                norms.layer_norm_forced_plan(rows, c, dtype, lanes, threads // lanes)
+            except ValueError:
+                continue
+            plans.append((lanes, threads // lanes))
+    return sorted(plans)
 
 
 def headline_tag(first, tag):
@@ -434,7 +482,7 @@ def phase_kernels(record):
             f"kernel/library {dev['kernel'] / dev['library']:.2f}")
         extra = "".join(f" {k} {dev[k]:.4f} ms" for k in ms if k.startswith("plan "))
         if "unfused" in ms:
-            extra = (f" unfused (F.linear, a*gelu(g), F.linear) {dev['unfused']:.4f} ms (with enqueue "
+            extra = (f" unfused ({UNFUSED[name]}) {dev['unfused']:.4f} ms (with enqueue "
                      f"{ms['unfused']['enqueue']:.4f}) kernel/unfused {dev['kernel'] / dev['unfused']:.2f}{extra}")
         print(f"{name:18s} {label:40s} max_abs_err {err:.3e} limit {limit:.3e} on the card alone: kernel "
               f"{dev['kernel']:.4f} ms (with enqueue {ms['kernel']['enqueue']:.4f}) plain {dev['plain']:.4f} ms "
@@ -806,13 +854,13 @@ def main():
     configure_precision("float32")
     t0 = time.perf_counter()
     x, w, b = randn((2, 8, 192), 0), randn((192,), 0), randn((192,), 0)
-    norms.layer_norm_kernel(x, w, b)
+    norms.layer_norm_kernel(x, w, b)  # CUDA C++, in the library just built
     norms.group_norm_kernel(x, 32, w, b)
     norms.group_norm_masked_kernel(x, 32, w, b, torch.full((2,), 5, dtype=torch.int32, device=DEV))
     x = randn((1, norms._SPLIT_MIN_T + 1, 192), 0)  # the split's two Triton kernels
     norms.group_norm_masked_kernel(x, 32, w, b, torch.full((1,), 5, dtype=torch.int32, device=DEV))
     torch.cuda.synchronize()
-    print(f"Triton compile of LayerNorm and the GroupNorm split, first GroupNorm launches: "
+    print(f"Triton compile of the GroupNorm split, first LayerNorm and GroupNorm launches: "
           f"{time.perf_counter() - t0:.1f} s")
 
     record = {name: {"name": name, "route": route, "source": src, "replaces": rep, "replaces_function": fn}

@@ -37,8 +37,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, w1, b1, w2, b2, out, M, C, I, dtype, tile_rows, cluster, stream
     "said_geglu_ffn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, out, B, T_in, T_out, C_in, C_out, K, dtype, stream
-    "said_strided_conv_gelu": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w (packed), out, B, T_in, T_out, C_in, C_out, K, dtype, route, split, stream
+    "said_strided_conv_gelu": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, b, y, rows, C, eps, dtype, vector route, lanes a row, chunks a lane,
+    # rows a block, stream
+    "said_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, lengths (NULL or (B,) int32), B, T, S, H, D, dtype, stream
     "said_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, b, y, lengths (NULL or (B,) int32), B, T, C, G, eps, silu, dtype,

@@ -1,7 +1,7 @@
 // Device helpers for the tensor-core kernels (flash_attention.cu,
-// geglu_ffn.cu): cp.async copies, wgmma descriptors, fences and product
-// wrappers (bf16 in, f32 accumulate), and 3xTF32 products on mma.sync for
-// the f32 paths. Raw PTX for sm_90a; no CUTLASS headers.
+// geglu_ffn.cu, strided_conv_gelu.cu): cp.async copies, wgmma
+// descriptors, fences and product wrappers (bf16 in, f32 accumulate), and
+// 3xTF32 products on mma.sync for the f32 paths. Raw PTX for sm_90a; no CUTLASS headers.
 #pragma once
 
 #include "common.cuh"
@@ -23,6 +23,9 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// waits until at most N committed groups of this thread's copies are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
 
 // ------------------------------------------------------- swizzled tiles
 

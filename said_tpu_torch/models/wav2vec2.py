@@ -89,16 +89,17 @@ class _ConvLayer(nn.Module):
         self.fused = stride == 2 and kernel in (2, 3) and not bias and not group_norm
         self.conv = nn.Conv1d(in_dim, out_dim, kernel, stride=stride, bias=bias)
         self.layer_norm = GroupNorm32(out_dim, num_groups=out_dim, eps=eps) if group_norm else None
-        # fused kernel: (C_out, C_in, K) -> (K, C_in, C_out); GEMM: (C_out, C_in·K)
+        # fused kernel: (C_out, C_in, K) -> (C_out, K, C_in), read as the
+        # packed (K, C_in, C_out) kernel (ops.conv.pack_weight); GEMM: (C_out, C_in·K)
         self._w = Derived(
-            (lambda w: w.permute(2, 1, 0)) if self.fused else (lambda w: w.reshape(w.shape[0], -1))
+            (lambda w: w.permute(0, 2, 1)) if self.fused else (lambda w: w.reshape(w.shape[0], -1))
         )
         self._b = Derived()
 
     def forward(self, x: torch.Tensor, frames: Optional[Frames] = None) -> torch.Tensor:
         dt = x.dtype
         if self.fused:
-            h = strided_conv_gelu(x, self._w(self.conv.weight, dt))
+            h = strided_conv_gelu(x, self._w(self.conv.weight, dt).permute(1, 2, 0))
         else:
             # (B, T, C_in) -> (B, T', C_in, K) -> (B, T', C_in·K), the torch weight's order
             cols = x.unfold(1, self.kernel, self.stride).reshape(x.shape[0], -1, x.shape[2] * self.kernel)

@@ -5,8 +5,13 @@ Ports ``said_tpu.ops.norms`` (routers ``layer_norm_f32`` :118,
 ``group_norm`` :69 and ``group_norm_masked`` :173) and replaces its
 Pallas kernels:
 
-- ``layer_norm_kernel`` (Triton) replaces ``layer_norm_pallas``
-  (said_tpu/ops/pallas_norms.py:441, K7).
+- ``layer_norm_kernel`` replaces ``layer_norm_pallas``
+  (said_tpu/ops/pallas_norms.py:441, K7): the CUDA C++ kernel
+  ``csrc/layer_norm.cu`` (its source note says how), a group of lanes a
+  row holding the row in registers, shuffles within the group; the host
+  picks lanes a row and rows a block from the shape
+  (``layer_norm_plan``), and ``layer_norm_lanes_plain`` is the plain twin
+  of its reduction order.
 - ``group_norm_kernel`` replaces ``group_norm_pallas`` (:79, K3) and its
   two-phase form ``group_norm_pallas_blocked`` (:249, K5).
 - ``group_norm_masked_kernel`` replaces ``group_norm_masked_pallas``
@@ -23,8 +28,7 @@ the main path's short sizes launch latency dominates; the encoder's
 (1, 32k, 512) conv_0 output is 64 MB and a bucketed 60-s clip's
 (1, 204799, 512) is 420 MB, where only the bytes count.
 
-LayerNorm is one program per block of rows with the whole (padded) row
-in registers. GroupNorm's variance is always a two-pass Σ(x−mean)² about
+LayerNorm's and GroupNorm's variance is always a two-pass Σ(x−mean)² about
 a mean, never E[x²]−mean². The host picks one of two routes from the
 shape alone (``group_norm_plan``):
 
@@ -55,8 +59,9 @@ shape alone (``group_norm_plan``):
 Neither route uses atomics: the result is the same bits on every call.
 Routers: a CPU tensor runs the plain twin; any other tensor goes to the
 kernel, whose wrapper raises unless it is a contiguous CUDA tensor of a
-supported dtype. Triton is imported, and the CUDA library built, on the
-first launch only, so this module imports where neither is present. (No
+supported dtype. Triton is imported (for the GroupNorm split), and the
+CUDA library built, on the first launch only, so this module imports
+where neither is present. (No
 ``from __future__ import annotations`` here: Triton reads the kernels'
 annotations as written.)
 """
@@ -89,6 +94,43 @@ def layer_norm_plain(
     var = xf.var(dim=-1, keepdim=True, correction=0)
     out = (xf - mean) / torch.sqrt(var + eps)
     return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def layer_norm_lanes_plain(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """The LayerNorm kernel's arithmetic in plain PyTorch, for the tests
+    (no path runs it), in the order of ``layer_norm_plan(rows, C,
+    x.dtype)``: element i of a row belongs to lane (i // v) % lanes (v
+    elements a 16-byte vector on the vector route, 1 on the scalar one);
+    each lane adds its elements in increasing i, then the lanes' sums are
+    joined by an xor butterfly (offsets 1, 2, 4, …). The mean is that sum
+    over C; the variance the same reduction of (x − mean)², over C."""
+    c = x.shape[-1]
+    xf = x.float().reshape(-1, c)
+    rows = xf.shape[0]
+    plan = layer_norm_plan(max(rows, 1), c, x.dtype)
+    v = 16 // (torch.finfo(x.dtype).bits // 8) if plan.route == "vector" else 1
+    i = torch.arange(c)
+    lane = (i // v) % plan.lanes
+    slot = (i // (v * plan.lanes)) * v + i % v
+    swap = [torch.arange(plan.lanes) ^ o for o in (1 << k for k in range(plan.lanes.bit_length() - 1))]
+
+    def lane_sum(a):  # (rows, c) -> (rows,)
+        grid = a.new_zeros((rows, plan.lanes, plan.chunks * v))
+        grid[:, lane, slot] = a
+        s = grid[:, :, 0]
+        for p in range(1, grid.shape[2]):
+            s = s + grid[:, :, p]
+        for perm in swap:
+            s = s + s[:, perm]
+        return s[:, 0]
+
+    mean = lane_sum(xf) / c
+    d = xf - mean[:, None]
+    rstd = 1.0 / torch.sqrt(lane_sum(d * d) / c + eps)
+    out = d * rstd[:, None] * weight.float() + bias.float()
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def group_norm_plain(
@@ -238,7 +280,7 @@ def group_norm_cluster_plain(
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """LayerNorm router: plain twin on the CPU, the Triton kernel otherwise."""
+    """LayerNorm router: plain twin on the CPU, the CUDA kernel otherwise."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     return layer_norm_kernel(x, weight, bias, eps)
@@ -276,26 +318,6 @@ def group_norm_masked(
 
 
 # ------------------------------------------------------- Triton kernels
-
-
-def _layer_norm_fwd(
-    X, W, B, Y, n_rows, eps,
-    C: "tl.constexpr", BLOCK_R: "tl.constexpr", BLOCK_C: "tl.constexpr",
-):
-    rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    mask = (rows < n_rows)[:, None] & cmask[None, :]
-    offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-    x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=1) / C
-    d = tl.where(mask, x - mean[:, None], 0.0)
-    var = tl.sum(d * d, axis=1) / C
-    rstd = 1.0 / tl.sqrt(var + eps)
-    w = tl.load(W + cols, mask=cmask, other=0.0)
-    b = tl.load(B + cols, mask=cmask, other=0.0)
-    y = d * rstd[:, None] * w[None, :] + b[None, :]
-    tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
 
 
 def _group_norm_stats(
@@ -401,7 +423,7 @@ def _kernels():
     import triton.language
 
     tl = triton.language
-    return triton.jit(_layer_norm_fwd), triton.jit(_group_norm_stats), triton.jit(_group_norm_apply)
+    return triton.jit(_group_norm_stats), triton.jit(_group_norm_apply)
 
 
 def _next_pow2(n: int) -> int:
@@ -547,19 +569,103 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, name: str)
     return c
 
 
+# LayerNorm plans (csrc/layer_norm.cu): at most _LN_THREADS threads a
+# block; rows a block halved until the launch has _LN_TARGET_BLOCKS blocks
+# (two per SM of an H100's 132) where the rows allow it; a lane holds at
+# most _LN_MAX_CHUNKS 16-byte vectors of its row, and aims at
+# _LN_CHUNKS_AIM (fewer lanes a row, more rows in flight a warp). From
+# the per-plan times of chip_smoke.py phase 2 on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md §6):
+# blocks of 128 threads were as fast as 256 at every main-path shape in
+# f32 and up to 8% faster in bf16; 32 lanes a row at C = 192 were slower.
+_LN_THREADS = 128
+_LN_MAX_THREADS = 256  # the kernel's bound (kLnMaxThreads), for forced plans
+_LN_TARGET_BLOCKS = 2 * 132
+_LN_MAX_CHUNKS = 8
+_LN_CHUNKS_AIM = 4
+
+
+class LayerNormPlan(NamedTuple):
+    """How a LayerNorm call runs, from its shape alone. ``route``
+    "vector": a lane holds ``chunks`` 16-byte vectors of its row (C·size a
+    multiple of 16 bytes); "scalar": ``chunks`` single elements. ``lanes``
+    lanes a row (a power of two, at most 32), ``rows`` rows a block,
+    ``blocks`` in the launch."""
+
+    route: str
+    lanes: int
+    chunks: int
+    rows: int
+    blocks: int
+
+
+def _ln_units(c: int, dtype: torch.dtype) -> tuple[str, int]:
+    """The route a row of C channels takes by its bytes, and its units:
+    16-byte vectors (vector route) or elements (scalar route)."""
+    esize = torch.finfo(dtype).bits // 8
+    return ("vector", c * esize // 16) if (c * esize) % 16 == 0 else ("scalar", c)
+
+
+def layer_norm_forced_plan(rows: int, c: int, dtype: torch.dtype, lanes: int, per_block: int) -> LayerNormPlan:
+    """The plan with ``lanes`` lanes a row and ``per_block`` rows a block,
+    for tests and timing; raises where the kernel does not take it."""
+    route, units = _ln_units(c, dtype)
+    chunks = -(-units // lanes)
+    threads = lanes * per_block
+    if (lanes not in (1, 2, 4, 8, 16, 32) or threads % 32 or not 32 <= threads <= _LN_MAX_THREADS
+            or (route == "vector" and chunks > _LN_MAX_CHUNKS)):
+        raise ValueError(f"layer_norm_kernel: plan ({lanes} lanes, {per_block} rows a block) not taken at C={c} {dtype}")
+    return LayerNormPlan(route, lanes, chunks, per_block, -(-rows // per_block))
+
+
+@functools.cache  # on the host path of every call; a few shapes per process
+def layer_norm_plan(rows: int, c: int, dtype: torch.dtype = torch.float32) -> LayerNormPlan:
+    """The plan of a LayerNorm over ``rows`` rows of ``c`` channels in
+    ``dtype``: the fewest lanes a row (a power of two) whose share is at
+    most _LN_CHUNKS_AIM vectors (32 lanes past that), the scalar route
+    where the row is no whole number of vectors or a lane would hold more
+    than _LN_MAX_CHUNKS; then the most rows a block (up to _LN_THREADS
+    threads, at least a warp) that still makes _LN_TARGET_BLOCKS blocks."""
+    route, units = _ln_units(c, dtype)
+    lanes = min(32, _next_pow2(-(-units // _LN_CHUNKS_AIM)))
+    if route == "vector" and -(-units // lanes) > _LN_MAX_CHUNKS:
+        route, units = "scalar", c
+        lanes = min(32, _next_pow2(-(-units // _LN_CHUNKS_AIM)))
+    per_block, least = _LN_THREADS // lanes, max(1, 32 // lanes)
+    while per_block > least and -(-rows // per_block) < _LN_TARGET_BLOCKS:
+        per_block //= 2
+    return LayerNormPlan(route, lanes, -(-units // lanes), per_block, -(-rows // per_block))
+
+
 def layer_norm_kernel(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+    *, _plan: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Triton LayerNorm over the last axis of a contiguous CUDA tensor."""
-    c = _check(x, weight, bias, "layer_norm_kernel")
-    ln, _, _ = _kernels()
+    """LayerNorm over the last axis of a contiguous CUDA tensor: one launch
+    of ``csrc/layer_norm.cu`` by ``layer_norm_plan``. ``_plan`` (lanes a
+    row, rows a block) forces another, for tests and timing only."""
+    name = "layer_norm_kernel"
+    c = _check(x, weight, bias, name)
+    if c == 0:
+        raise ValueError(f"{name}: needs C >= 1, got {tuple(x.shape)}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: input is on {x.device}, not the current device")
     y = torch.empty_like(x)
-    n_rows = x.numel() // c
-    block_c = _next_pow2(c)
-    block_r = max(1, 4096 // block_c)
-    grid = (-(-n_rows // block_r),)
-    # Triton's launcher raises on a failed cuLaunchKernel.
-    ln[grid](x, weight, bias, y, n_rows, eps, C=c, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+    rows = x.numel() // c
+    if rows == 0:
+        return y
+    if _plan is None:
+        plan = layer_norm_plan(rows, c, x.dtype)
+    else:
+        plan = layer_norm_forced_plan(rows, c, x.dtype, *_plan)
+    if plan.route == "vector" and (x.data_ptr() % 16 or weight.data_ptr() % 16 or bias.data_ptr() % 16):
+        raise ValueError(f"{name}: x, weight and bias must start on a 16-byte boundary")
+    err = _build.library().said_layer_norm(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c, eps,
+        _build.DTYPE_CODE[x.dtype], int(plan.route == "vector"), plan.lanes, plan.chunks, plan.rows,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(err, name)
     layer_norm_kernel.launches += 1
     return y
 
@@ -596,7 +702,7 @@ def _launch_group_norm(x, num_groups, weight, bias, lengths, eps, act, name, pla
         )
         _build.check(err, name)
         return y
-    _, stats, apply = _kernels()
+    stats, apply = _kernels()
     cg, cg_p, gb, n_gblocks, block_t = _group_geometry(c, num_groups)
     # unmasked: L is never read (MASKED is a compile-time False)
     lens = x if lengths is None else lengths

@@ -16,7 +16,10 @@ length-bucketed mode: 8 copies of a 4.3-s clip (258 real frames) in a
 GroupNorm is the masked kernel. Per cell and repeat:
 
 - ``prepare_ms``: ``SAIDPipeline.prepare`` (encoder, null embedding, K/V
-  caches, timestep table) on the host clock, synchronised;
+  caches, timestep table) on the host clock, synchronised; then one more
+  prepare under ``torch.profiler``: ``prepare_device_busy_ms`` and
+  ``prepare_by_family_ms``, device ms by kernel family (the strided
+  conv, LayerNorm and flash attention of the encoder among them);
 - ``step_ms``: the DDIM chain of ``STEPS`` steps (``diffusion.sampler``
   with the pipeline's denoiser), host clock over the chain / steps; the
   6-min cells, whose step is some 10× longer, run ``LONG_STEPS`` (a
@@ -67,7 +70,10 @@ FAMILIES = (
     ("geglu", "geglu_ffn (ours)"),
     # said::group_norm_kernel<…> (one launch), or the split's _group_norm_stats + _group_norm_apply
     ("group_norm", "group_norm (ours, plain or masked)"),
-    ("_layer_norm_fwd", "layer_norm (ours)"),
+    # said::layer_norm_vec_kernel / layer_norm_scalar_kernel (csrc/layer_norm.cu);
+    # also a checkout's Triton _layer_norm_fwd, for comparisons with it
+    ("layer_norm", "layer_norm (ours)"),
+    # said::strided_conv_gelu_{bf16,f32,fma}_kernel
     ("strided_conv", "strided_conv_gelu (ours)"),
     ("gemm", "cuBLAS GEMM/GEMV"),
     ("gemv", "cuBLAS GEMM/GEMV"),
@@ -147,9 +153,11 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def profiled_step(cell: Cell, steps: int) -> dict:
+def device_profile(fn, calls: int = 1) -> dict:
+    """Device ms a call of ``fn`` (run ``calls`` times) under the profiler:
+    busy, launches and by kernel family; None where it saw no device event."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cell.chain(steps)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
@@ -157,12 +165,21 @@ def profiled_step(cell: Cell, steps: int) -> dict:
     by_family = {}
     for e in events:
         fam = family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     return {
         "device_busy_ms": sum(by_family.values()),
-        "launches": len(events) / steps,
+        "launches": len(events) / calls,
         "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
     }
+
+
+def profiled_step(cell: Cell, steps: int) -> dict:
+    return device_profile(lambda: cell.chain(steps), steps)
+
+
+def profiled_prepare(cell: Cell) -> dict:
+    p = device_profile(cell.prepare)
+    return {"prepare_device_busy_ms": p["device_busy_ms"], "prepare_by_family_ms": p["by_family_ms"]}
 
 
 def main(argv=None) -> dict:
@@ -210,6 +227,7 @@ def main(argv=None) -> dict:
             r = {"prepare_ms": host_ms(cell.prepare),
                  "step_ms": host_ms(lambda: cell.chain(cell.steps)) / cell.steps}
             r.update(profiled_step(cell, cell.profile_steps))
+            r.update(profiled_prepare(cell))
             readings[name].append(r)
     set_split_min_t(shipped)
 
@@ -226,6 +244,12 @@ def main(argv=None) -> dict:
             fams = sorted({f for r in profiled for f in r["by_family_ms"]})
             med["by_family_ms"] = {f: statistics.median(r["by_family_ms"].get(f, 0.0) for r in profiled)
                                    for f in fams}
+        prepared = [r for r in rs if r["prepare_device_busy_ms"] is not None]
+        if prepared:
+            med["prepare_device_busy_ms"] = statistics.median(r["prepare_device_busy_ms"] for r in prepared)
+            fams = sorted({f for r in prepared for f in r["prepare_by_family_ms"]})
+            med["prepare_by_family_ms"] = {f: statistics.median(r["prepare_by_family_ms"].get(f, 0.0)
+                                                                for r in prepared) for f in fams}
         summary[name] = med
         print(name, json.dumps(med))
     result = {"gpu": gpu, "args": vars(args), "summary": summary, "readings": readings}

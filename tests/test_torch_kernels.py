@@ -45,15 +45,73 @@ def _assert_close(got, ref, dtype):
     assert err <= bound, f"max abs err {err:.3g} > bound {bound:.3g}"
 
 
+# LayerNorm widths: the tiny encoder's 16, a scalar-route 33, the UNet's
+# 192 and 384, the encoder's 512 and 768; rows: 1, ragged, the UNet's 10-s
+# and 60-s batch-2 rows, its 6-min ones
+_LN_WIDTHS = [16, 33, 192, 384, 512, 768]
+_LN_ROWS = [1, 37, 1200, 7200, 43200]
+
+
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("shape", [(2, 600, 192), (1, 600, 768), (2, 37, 192)])
-def test_layer_norm_kernel(dev, dtype, shape):
-    c = shape[-1]
-    x = _randn(shape, 0, dev, dtype, 2.0, 0.5)
+@pytest.mark.parametrize("c", _LN_WIDTHS)
+@pytest.mark.parametrize("rows", _LN_ROWS)
+def test_layer_norm_kernel(dev, dtype, c, rows):
+    x = _randn((1, rows, c), 0, dev, dtype, 2.0, 0.5)
     w = _randn((c,), 1, dev, torch.float32)
     b = _randn((c,), 2, dev, torch.float32)
-    _assert_close(norms.layer_norm_kernel(x, w, b, 1e-5),
-                  norms.layer_norm_plain(x, w, b, 1e-5), dtype)
+    got = norms.layer_norm_kernel(x, w, b, 1e-5)
+    _assert_close(got, norms.layer_norm_plain(x, w, b, 1e-5), dtype)
+    assert torch.equal(got, norms.layer_norm_kernel(x, w, b, 1e-5))  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("c", _LN_WIDTHS)
+def test_layer_norm_kernel_follows_its_twin(dev, dtype, c):
+    """The kernel against the plain twin of its own reduction order, at
+    inputs of mean 30 (where a one-pass variance would lose digits)."""
+    x = _randn((3, 37, c), 3, dev, dtype, 2.0, 30.0)
+    w = _randn((c,), 4, dev, torch.float32)
+    b = _randn((c,), 5, dev, torch.float32)
+    got, want = norms.layer_norm_kernel(x, w, b, 1e-6), norms.layer_norm_lanes_plain(x, w, b, 1e-6)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("c,rows", [(192, 1200), (768, 37), (33, 37)])
+def test_layer_norm_kernel_every_plan(dev, dtype, c, rows):
+    """Every (lanes a row, rows a block) the kernel takes gives the twin's
+    values, the same bits over two calls."""
+    x = _randn((rows, c), 7, dev, dtype, 2.0, 0.5)
+    w, b = _randn((c,), 8, dev, torch.float32), _randn((c,), 9, dev, torch.float32)
+    want = norms.layer_norm_plain(x, w, b, 1e-5)
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for per_block in (1, 2, 4, 8, 16, 32, 64):
+            try:
+                norms.layer_norm_forced_plan(rows, c, dtype, lanes, per_block)
+            except ValueError:
+                continue
+            got = norms.layer_norm_kernel(x, w, b, 1e-5, _plan=(lanes, per_block))
+            _assert_close(got, want, dtype)
+            assert torch.equal(got, norms.layer_norm_kernel(x, w, b, 1e-5, _plan=(lanes, per_block)))
+
+
+def test_layer_norm_kernel_refuses_bad_input(dev):
+    x = _randn((4, 192), 6, dev, torch.float32)
+    w = torch.ones(192, device=dev)
+    before = norms.layer_norm_kernel.launches
+    with pytest.raises(TypeError, match="dtype"):
+        norms.layer_norm_kernel(x.half(), w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.layer_norm_kernel(x.t(), torch.ones(4, device=dev), torch.ones(4, device=dev))
+    with pytest.raises(ValueError, match="weight/bias"):
+        norms.layer_norm_kernel(x, w.to(torch.bfloat16), w)
+    with pytest.raises(ValueError, match="weight/bias"):
+        norms.layer_norm_kernel(x, torch.ones(191, device=dev), w)
+    with pytest.raises(ValueError, match="16-byte"):
+        norms.layer_norm_kernel(torch.empty(4 * 192 + 1, device=dev)[1:].view(4, 192), w, w)
+    with pytest.raises(ValueError, match="C >= 1"):
+        norms.layer_norm_kernel(torch.empty((4, 0), device=dev), torch.ones(0, device=dev), torch.ones(0, device=dev))
+    assert norms.layer_norm_kernel.launches == before
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -305,13 +363,75 @@ def test_geglu_ffn_kernel_refuses_bad_input(dev):
         ffn.geglu_ffn_kernel(x, w1, b1, w2, b2, _plan=(128, 1))  # two warpgroups: bf16 only
 
 
+# (B, K, T_in) at 512 -> 512 channels: conv_1 … conv_6 of a 10-s clip, the
+# shortest inputs (T_in = K, K + 1), 8 and 41 samples at batch 2 (a tile's
+# rows span both batches), and T_out = 129 and 257, one row past a tile
+_CONV_CASES = [(1, 3, 31999), (1, 3, 15999), (1, 3, 7999), (1, 3, 3999), (1, 2, 1999), (1, 2, 999),
+               *[(2, k, t) for k in (2, 3) for t in (k, k + 1, 8, 41)],
+               (2, 3, 259), (1, 2, 514), (2, 3, 514)]
+
+
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("k,t_in", [(3, 7999), (2, 999), (3, 8)])
-def test_strided_conv_gelu_kernel(dev, dtype, k, t_in):
-    x = _randn((1, t_in, 512), 11, dev, dtype)
+@pytest.mark.parametrize("b,k,t_in", _CONV_CASES)
+def test_strided_conv_gelu_kernel(dev, dtype, b, k, t_in):
+    x = _randn((b, t_in, 512), 11, dev, dtype)
     w = _randn((k, 512, 512), 12, dev, dtype, 0.03)
-    _assert_close(conv.strided_conv_gelu_kernel(x, w),
-                  conv.strided_conv_gelu_plain(x, w), dtype)
+    t_out = (t_in - k) // 2 + 1
+    assert conv.conv_plan(b * t_out, 512, 512, dtype).route == "tensor_cores"
+    got = conv.strided_conv_gelu_kernel(x, conv.pack_weight(w))
+    _assert_close(got, conv.strided_conv_gelu_plain(x, w), dtype)
+    assert torch.equal(got, conv.strided_conv_gelu_kernel(x, conv.pack_weight(w)))  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,k,t_in,c_in,c_out", [(2, 3, 8, 16, 16), (2, 3, 399, 16, 16), (1, 2, 64, 16, 16),
+                                                 (2, 3, 41, 96, 200)])
+def test_strided_conv_gelu_kernel_fma_route(dev, dtype, b, k, t_in, c_in, c_out):
+    """Widths the tensor-core tiles do not take (the tiny encoder's 16
+    channels) run on the FMA pipes, under the same launch counter."""
+    x = _randn((b, t_in, c_in), 13, dev, dtype)
+    w = _randn((k, c_in, c_out), 14, dev, dtype, 0.2)
+    assert conv.conv_plan(b * ((t_in - k) // 2 + 1), c_in, c_out, dtype).route == "fma"
+    before = conv.strided_conv_gelu_kernel.launches
+    got = conv.strided_conv_gelu(x, w)
+    assert conv.strided_conv_gelu_kernel.launches == before + 1
+    _assert_close(got, conv.strided_conv_gelu_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,k,t_in", [(1, 3, 7999), (2, 3, 259), (1, 2, 999)])
+def test_strided_conv_gelu_kernel_every_split(dev, dtype, b, k, t_in):
+    """Every split of the contraction over a cluster gives the twin's
+    values, the same bits over two calls."""
+    x = _randn((b, t_in, 512), 17, dev, dtype)
+    w = _randn((k, 512, 512), 18, dev, dtype, 0.03)
+    packed, want = conv.pack_weight(w), conv.strided_conv_gelu_plain(x, w)
+    for split in conv.SPLITS:
+        got = conv.strided_conv_gelu_kernel(x, packed, _split=split)
+        _assert_close(got, want, dtype)
+        assert torch.equal(got, conv.strided_conv_gelu_kernel(x, packed, _split=split))
+
+
+def test_strided_conv_gelu_kernel_refuses_bad_input(dev):
+    x = _randn((1, 41, 512), 15, dev, torch.float32)
+    w = _randn((3, 512, 512), 16, dev, torch.float32, 0.03)
+    packed = conv.pack_weight(w)
+    before = conv.strided_conv_gelu_kernel.launches
+    with pytest.raises(ValueError, match="packed"):
+        conv.strided_conv_gelu_kernel(x, w)  # contiguous (K, C_in, C_out), not packed
+    with pytest.raises(ValueError, match="packed"):
+        conv.strided_conv_gelu_kernel(x, conv.pack_weight(w.to(torch.bfloat16)))
+    with pytest.raises(TypeError, match="dtype"):
+        conv.strided_conv_gelu_kernel(x.half(), conv.pack_weight(w.half()))
+    with pytest.raises(ValueError, match="shorter"):
+        conv.strided_conv_gelu_kernel(x[:, :2].contiguous(), packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv.strided_conv_gelu_kernel(torch.empty(41 * 512 + 1, device=dev)[1:].view(1, 41, 512), packed)
+    with pytest.raises(ValueError, match="split"):
+        conv.strided_conv_gelu_kernel(x, packed, _split=3)
+    with pytest.raises(ValueError, match="split"):  # the FMA route takes no split
+        conv.strided_conv_gelu_kernel(x[:, :, :16].contiguous(), conv.pack_weight(w[:, :16, :16]), _split=2)
+    assert conv.strided_conv_gelu_kernel.launches == before
 
 
 def test_routers_launch_kernels_on_cuda(dev):

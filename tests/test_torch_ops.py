@@ -197,6 +197,55 @@ def test_layer_norm_matches_jax(shape):
     _close(got, _layer_norm_jnp(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
 
 
+@pytest.mark.parametrize("c", [192, 512, 768, 33])
+@pytest.mark.parametrize("offset", [-0.5, 30.0])
+def test_layer_norm_lanes_plain_matches_jax(c, offset):
+    """The LayerNorm kernel's reduction order (lanes a row, each adding its
+    elements in order, then an xor butterfly) against the JAX reference, at
+    the vector route's widths and the scalar route's 33, and at inputs of
+    mean 30 (there at _CHUNKED_TOL: the shipped twin differs from JAX by
+    up to 1.6e-5 too)."""
+    x, w, b = _rand((2, 37, c), 6, 2.0, offset), _rand((c,), 7), _rand((c,), 8)
+    got = norms.layer_norm_lanes_plain(_t(x), _t(w), _t(b)).numpy()
+    want = _layer_norm_jnp(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    _close(got, want, **(_CHUNKED_TOL if offset > 1 else TOL))
+
+
+@pytest.mark.parametrize("rows,c,f32_plan,bf16_plan", [
+    (1200, 192, ("vector", 16, 3, 4, 300), ("vector", 8, 3, 4, 300)),          # the UNet at 10 s (batch 2)
+    (7200, 192, ("vector", 16, 3, 8, 900), ("vector", 8, 3, 16, 450)),         # 60 s
+    (43200, 192, ("vector", 16, 3, 8, 5400), ("vector", 8, 3, 16, 2700)),      # 6 min
+    (600, 512, ("vector", 32, 4, 2, 300), ("vector", 16, 4, 2, 300)),          # feature projection, 10 s
+    (2999, 768, ("vector", 32, 6, 4, 750), ("vector", 32, 3, 4, 750)),         # encoder layers, 50 s
+    (17999, 768, ("vector", 32, 6, 4, 4500), ("vector", 32, 3, 4, 4500)),      # 5 min
+    (48, 16, ("vector", 1, 4, 32, 2), ("vector", 1, 2, 32, 2)),                # the tiny encoder's C = 16
+    (37, 33, ("scalar", 16, 3, 2, 19), ("scalar", 16, 3, 2, 19)),              # no whole 16-byte vectors
+    (7, 2048, ("scalar", 32, 64, 1, 7), ("vector", 32, 8, 1, 7)),             # past 8 vectors a lane (f32)
+])
+def test_layer_norm_plan(rows, c, f32_plan, bf16_plan):
+    """Lanes a row hold at most 4 vectors where 32 lanes allow it (16 × 3
+    float4 at C = 192 f32, 8 × 3 in bf16, 32 × 4 at 512, 32 × 6 at 768);
+    blocks are halved until the launch has 2 × 132 of them where the rows
+    allow it; a block is at least a warp and at most 128 threads."""
+    for dtype, want in ((torch.float32, f32_plan), (torch.bfloat16, bf16_plan)):
+        plan = norms.layer_norm_plan(rows, c, dtype)
+        assert tuple(plan) == want
+        assert plan.lanes * plan.chunks * (16 // (torch.finfo(dtype).bits // 8) if plan.route == "vector" else 1) >= c
+        assert 32 <= plan.lanes * plan.rows <= 128 and plan.blocks == -(-rows // plan.rows)
+        assert plan.blocks >= 2 * 132 or plan.lanes * plan.rows == 32
+
+
+def test_layer_norm_forced_plan():
+    """A forced plan keeps the shape's route and takes any lanes and rows a
+    block the kernel takes (whole warps, at most 256 threads, at most 8
+    vectors a lane); it refuses the rest."""
+    assert tuple(norms.layer_norm_forced_plan(1200, 192, torch.float32, 8, 16)) == ("vector", 8, 6, 16, 75)
+    assert tuple(norms.layer_norm_forced_plan(37, 33, torch.bfloat16, 32, 1)) == ("scalar", 32, 2, 1, 37)
+    for lanes, per_block in ((2, 16), (16, 1), (16, 32), (3, 32), (1, 16)):
+        with pytest.raises(ValueError, match="not taken"):
+            norms.layer_norm_forced_plan(1200, 192, torch.float32, lanes, per_block)
+
+
 # -------------------------------------------------------------------- ffn
 
 
@@ -282,6 +331,100 @@ def test_strided_conv_gelu_matches_jax(k, t_in):
     got = conv.strided_conv_gelu(_t(x), _t(w)).numpy()
     _close(got, strided_conv_gelu_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True))
     _close(got, _strided_conv_gelu_jnp(jnp.asarray(x), jnp.asarray(w)))
+
+
+def _conv_emulated(x, kernel, passes):
+    """The f32 tensor-core conv's arithmetic: A = the pair matrix X2 (x as
+    (B, T_in/2, 2·C_in), a half pair zero-padded) taken as X2[:, t] ++
+    X2[:, t+1, :C_in] (K = 3) or X2[:, t] (K = 2), i.e. the window x[b, 2t :
+    2t+K]; Wt the kernel packed (C_out, K·C_in). ``conv_plan``'s split
+    cuts the contraction's stages among a cluster's ranks; each rank runs
+    its k-steps of 8 in order, adding lo·hi, hi·lo, hi·hi (3xTF32) or hi·hi
+    (one pass) to one f32 accumulator; the ranks' partial sums are added in
+    rank order; GELU in f32."""
+    b, t_in, c_in = x.shape
+    k, _, c_out = kernel.shape
+    t_out = (t_in - k) // 2 + 1
+    x2 = torch.nn.functional.pad(x, (0, 0, 0, t_in % 2)).reshape(b, -1, 2 * c_in)
+    a = x2[:, :t_out] if k == 2 else torch.cat([x2[:, :t_out], x2[:, 1 : t_out + 1, :c_in]], dim=-1)
+    a = a.reshape(b * t_out, k * c_in)
+    wt = kernel.permute(2, 0, 1).reshape(c_out, k * c_in)
+    plan = conv.conv_plan(b * t_out, c_in, c_out, torch.float32)
+    stages = k * c_in // plan.tile_k
+    total = torch.zeros((b * t_out, c_out))
+    for rank in range(plan.split):
+        acc = torch.zeros((b * t_out, c_out))
+        for k0 in range(rank * stages // plan.split * plan.tile_k, (rank + 1) * stages // plan.split * plan.tile_k, 8):
+            a8, w8 = a[:, k0 : k0 + 8], wt[:, k0 : k0 + 8]
+            ah, wh = _tf32(a8), _tf32(w8)
+            if passes == 3:
+                acc = acc + _tf32(a8 - ah) @ wh.t()
+                acc = acc + ah @ _tf32(w8 - wh).t()
+            acc = acc + ah @ wh.t()
+        total = total + acc
+    return conv.gelu_f32(total).reshape(b, t_out, c_out)
+
+
+@pytest.mark.parametrize("k,t_in", [(3, 70), (2, 64)])
+def test_strided_conv_3xtf32_holds_the_f32_bound(k, t_in):
+    """The card's f32 conv route runs as 3xTF32 over the pair matrix in
+    k-steps of 8 (here in one tile whose contraction a cluster of 8
+    splits). Emulated on the CPU it lands within 1e-5 of max |JAX|,
+    against the JAX twin and K9 in interpret mode, ten times inside the
+    kernel's f32 bound; single-pass TF32 does not hold the bound."""
+    x, w = _rand((2, t_in, 128), 16), _rand((k, 128, 128), 17, 0.05)
+    assert conv.conv_plan(2 * ((t_in - k) // 2 + 1), 128, 128).split == 8
+    for want in (_strided_conv_gelu_jnp(jnp.asarray(x), jnp.asarray(w)),
+                 strided_conv_gelu_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True)):
+        want = torch.from_numpy(np.array(want))
+        bound = 1e-4 * want.abs().max().item()
+        err3 = (_conv_emulated(_t(x), _t(w), 3) - want).abs().max().item()
+        err1 = (_conv_emulated(_t(x), _t(w), 1) - want).abs().max().item()
+        assert err3 <= bound / 10, f"3xTF32: {err3:.3g} > {bound / 10:.3g}"
+        assert err1 > bound, f"single-pass TF32: {err1:.3g} <= {bound:.3g}"
+
+
+@pytest.mark.parametrize("t_in,k,dtype,plan", [
+    (31999, 3, torch.float32, ("tensor_cores", 128, 128, 16, 4, 1, 500)),   # conv_1 of a 10-s clip
+    (15999, 3, torch.float32, ("tensor_cores", 128, 128, 16, 4, 1, 252)),
+    (7999, 3, torch.float32, ("tensor_cores", 128, 128, 16, 4, 1, 128)),
+    (3999, 3, torch.float32, ("tensor_cores", 128, 128, 16, 4, 2, 128)),
+    (1999, 2, torch.float32, ("tensor_cores", 128, 128, 16, 4, 4, 128)),
+    (999, 2, torch.float32, ("tensor_cores", 128, 128, 16, 4, 8, 128)),     # conv_6: 16 tiles
+    (191999, 3, torch.float32, ("tensor_cores", 128, 128, 16, 4, 1, 3000)),  # conv_1 of a 60-s clip
+    (31999, 3, torch.bfloat16, ("tensor_cores", 128, 128, 64, 3, 1, 500)),
+    (999, 2, torch.bfloat16, ("tensor_cores", 128, 128, 64, 3, 8, 128)),
+])
+def test_conv_plan(t_in, k, dtype, plan):
+    """At 512 -> 512 channels every conv of the path runs on the tensor
+    cores in 128×128 tiles (4 across C_out), bf16 in stages of 64
+    contraction columns (3 stages), f32 in stages of 16 (4); where the
+    tiles number fewer than 128, a cluster of 2–8 blocks splits each
+    tile's contraction so that about one block an SM runs."""
+    assert tuple(conv.conv_plan((t_in - k) // 2 + 1, 512, 512, dtype)) == plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_plan_tiny_width_takes_the_fma_route(dtype):
+    """The tiny test encoder (``Wav2Vec2Config.tiny``: 16 channels) is no
+    whole tile: its convs run on the FMA pipes in 64×64 tiles."""
+    assert tuple(conv.conv_plan(2 * 399, 16, 16, dtype)) == ("fma", 64, 64, 16, 1, 1, 13)
+    assert conv.conv_plan(100, 96, 512, dtype).route == "fma" and conv.conv_plan(100, 512, 192, dtype).route == "fma"
+
+
+def test_conv_weight_is_packed_once():
+    """The conv layer keeps its weight packed for the kernel (C_out, K,
+    C_in in memory), derived once: two calls get the same tensor, and the
+    (K, C_in, C_out) view it passes equals the flax layout."""
+    from said_tpu_torch.models.wav2vec2 import _ConvLayer
+
+    layer = _ConvLayer(16, 32, 3, 2, False, False, 1e-5)
+    packed = layer._w(layer.conv.weight, torch.float32)
+    assert packed is layer._w(layer.conv.weight, torch.float32)
+    view = packed.permute(1, 2, 0)
+    assert conv.is_packed(view) and not conv.is_packed(view.contiguous())
+    assert torch.equal(view, layer.conv.weight.detach().permute(2, 1, 0))
+    assert torch.equal(conv.pack_weight(view.contiguous()), view)
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
