@@ -53,6 +53,13 @@ Phases (any failure exits non-zero; there is no try/except around them):
    the kernel takes (each as close to the twin, and bit-identical over
    two calls). Flash attention, GEGLU and the strided conv carry a bf16
    record beside the f32 one in the JSON line.
+2b. Each kernel's autograd wrapper (the router where an input needs a
+   gradient: the kernel forward, a PyTorch backward) on the card against
+   its plain twin differentiated by autograd: GroupNorm plain and masked
+   (+SiLU), LayerNorm at the training path's shapes, flash attention at
+   2400 keys (the dense-recompute backward, with and without lengths) and
+   4200 (the blockwise one), GEGLU and the strided conv; forward and every
+   input gradient within the bounds of phase 2, relative to max |plain|.
 3. One request through the real CLI ``main(argv)``: a synthetic 10-s WAV
    (600 frames), 1000 DDIM steps, CFG 2.0, float32, random weights from
    seed 0. The CSV must hold 600 rows under the 32 ARKit names, finite and
@@ -106,6 +113,33 @@ Phases (any failure exits non-zero; there is no try/except around them):
     bucketed against unbucketed on the card, on the real frames: within
     1e-4 of max |unbucketed|.
 
+13. Training, card against CPU, at full width (f32, deterministic,
+    injected timesteps and noise): ``said_loss`` and its gradients for
+    batch 2 at a 600-frame window bucketed with 597 real frames, on the
+    card (kernels) and on the CPU (plain twins): the loss within 1e-5
+    relative, each trainable tensor's gradient within 1e-3 relative L2 and
+    the global norm within 1e-4. The L1 losses' gradient is a sign: where
+    card and CPU predictions straddle the answer (a near-tie) the loss's
+    gradient differs by 2/N there, so the script counts those elements;
+    with none the gradients themselves are held to the bounds, with some
+    the card's backward is held to them on the CPU's gradient at the
+    prediction, and every flip must be a near-tie (|residual| ≤ 1e-4).
+    The card's launch counters show the path's kernels ran.
+14. The same at batch 1 and a 2400-frame window (the flash kernel forward,
+    the dense-recompute backward; 16 flash launches); then a 4200-frame
+    window on the card alone, whose blockwise backward (1024-key blocks)
+    must match the dense recompute within 1e-4 relative L2 per tensor.
+15. The training CLI ``said_tpu_torch.cli.train`` at full width on a
+    synthetic tree (2 train persons × 8 sentences, 1 val person × 2, 5 s
+    each; batch 8, default windows and buckets): 4 f32 epochs (checkpoints
+    at 2 and 4, validation at 4), ``--resume`` from epoch 2 for one epoch,
+    3 bf16 epochs. Finite losses, no skipped step, the metrics lines, the
+    checkpoints and ``.pth`` files; ``4.pth`` through the inference CLI
+    (strict load) gives a valid CSV; exact launch counts where the path
+    fixes them (LayerNorm varies with layerdrop); the median train step
+    (host, synchronised) in f32 and bf16 and the launches a step, also as
+    a ``{"training": ...}`` JSON line.
+
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
@@ -119,6 +153,7 @@ the repository beside it, the script exits non-zero and prints no result.
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -839,6 +874,365 @@ def phase_bf16():
     print(f"bf16 vs f32 coefficient MAE {np.abs(bf - out['float32']).mean():.3e} (for information)")
 
 
+# ------------------------------------------------------------- training
+
+
+def rel_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def autograd_cases():
+    """(label, dtype, wrapper thunk, plain thunk, inputs needing a gradient,
+    lengths) per check of phase 2b: each thunk maps the inputs to an
+    output; the wrapper is the router (kernel forward, its
+    ``torch.autograd.Function`` backward), the plain thunk its plain twin,
+    differentiated by autograd."""
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        w, b = randn((192,), 5).requires_grad_(), randn((192,), 6).requires_grad_()
+        for shape, lengths in (((2, 600, 192), None), ((2, 600, 192), [597, 597]), ((8, 304, 192), [297] * 8)):
+            x = randn(shape, 4, dt, 2.0, 0.5).requires_grad_()
+            if lengths is None:
+                cases.append((f"group_norm {tag} {shape} silu", dt,
+                              lambda x, w, b: norms.group_norm(x, 32, w, b, 1e-5, "silu"),
+                              lambda x, w, b: norms.group_norm_plain(x, 32, w, b, 1e-5, "silu"), (x, w, b), None))
+            else:
+                lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+                cases.append((f"group_norm_masked {tag} {shape} silu lengths {sorted(set(lengths))}", dt,
+                              lambda x, w, b, lens=lens: norms.group_norm_masked(x, 32, w, b, lens, 1e-5, "silu"),
+                              lambda x, w, b, lens=lens: norms.group_norm_masked_plain(x, 32, w, b, lens, 1e-5, "silu"),
+                              (x, w, b), lengths))
+            cases.append((f"layer_norm {tag} {shape}", dt, lambda x, w, b: norms.layer_norm(x, w, b),
+                          lambda x, w, b: norms.layer_norm_plain(x, w, b), (x, w, b), None))
+        # past the dense limit: 2400 keys take the dense-recompute backward,
+        # 4200 the blockwise one
+        for b_, t, lengths in ((1, 2400, None), (2, 2400, [2400, 2100]), (1, 4200, None)):
+            q, k, v = (randn((b_, t, 192), 14 + j, dt).requires_grad_() for j in range(3))
+            lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            label = f"flash_attention {tag} ({b_}, {t}, 6x32)" + ("" if lengths is None else f" lengths {lengths}")
+            cases.append((label, dt, lambda q, k, v, lens=lens: attention.self_attention(q, k, v, 6, lens),
+                          lambda q, k, v, lens=lens: attention.flash_attention_plain(q, k, v, 6, lens), (q, k, v),
+                          lengths))
+    x = randn((2, 600, 192), 7).requires_grad_()
+    w1, b1 = randn((1536, 192), 8, scale=0.05).requires_grad_(), randn((1536,), 9, scale=0.1).requires_grad_()
+    w2, b2 = randn((192, 768), 10, scale=0.05).requires_grad_(), randn((192,), 11, scale=0.1).requires_grad_()
+    cases.append(("geglu_ffn f32 (2, 600, 192)", torch.float32, ffn.geglu_ffn, ffn.geglu_ffn_plain, (x, w1, b1, w2, b2),
+                  None))
+    x, kw = randn((1, 3999, 512), 12).requires_grad_(), randn((3, 512, 512), 13, scale=0.03)
+    packed = conv.pack_weight(kw).requires_grad_()
+    cases.append(("strided_conv_gelu f32 K=3 T_in=3999", torch.float32, conv.strided_conv_gelu,
+                  conv.strided_conv_gelu_plain, (x, packed), None))
+    return cases
+
+
+def phase_autograd():
+    print("\n== phase 2b: the kernels' autograd wrappers on the card: forward against the plain twin, backward "
+          "(PyTorch functions) against autograd through the plain twin ==")
+    for label, dt, wrapper, plain, inputs, lengths in autograd_cases():
+        got = wrapper(*inputs)
+        want = plain(*inputs)
+        check(got.grad_fn is not None, f"{label}: the wrapper's output has no grad_fn")
+        g = randn(tuple(got.shape), 99, dt)
+        if lengths is not None and label.startswith("flash"):
+            # the kernel gives 0 at query rows past a length and its backward
+            # follows the dense form there, as the JAX package's; the model's
+            # gradient at padded rows is 0, so it is here
+            g = g * (torch.arange(got.shape[1], device=DEV)[None, :, None]
+                     < torch.tensor(lengths, device=DEV)[:, None, None]).to(dt)
+        grads = torch.autograd.grad(got, inputs, g)
+        ref = torch.autograd.grad(want, inputs, g)
+        torch.cuda.synchronize()
+        fwd = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        errs = [(a.float() - r.float()).abs().max().item() / r.float().abs().max().item() for a, r in zip(grads, ref)]
+        bound = BOUND[dt]
+        ok = fwd <= bound and max(errs) <= bound and all(np.isfinite(errs))
+        print(f"{label:58s} forward {fwd:.3e}, backward {' '.join(f'{e:.3e}' for e in errs)} of max |plain| "
+              f"(bound {bound:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: wrapper against plain twin: forward {fwd:.3e}, backward {errs} > {bound}")
+
+
+TRAIN_BOUND = {"loss": 1e-5, "grad": 1e-3, "global norm": 1e-4}
+
+
+def train_inputs(batch, frames, window_real, seed):
+    """Numpy inputs of one ``said_loss`` call: processed waveforms padded to
+    the window, coefficients, CFG flags, timesteps and noise."""
+    from said_tpu_torch.models.said import process_audio
+
+    rng = np.random.default_rng(seed)
+    wave_real = window_real * SR // FPS
+    wave = process_audio(0.1 * rng.standard_normal((batch, wave_real)).astype(np.float32))
+    wave = np.pad(wave, ((0, 0), (0, -(-frames * SR // FPS) - wave_real)))
+    coeffs = rng.uniform(0, 1, (batch, frames, 32)).astype(np.float32)
+    coeffs[:, window_real:] = 0.0
+    noise = rng.standard_normal((batch, frames, 32)).astype(np.float32)
+    return dict(waveform=wave, coeffs=coeffs, cond=np.array([True, False] * batch)[:batch],
+                timesteps=rng.integers(0, 1000, batch), noise=noise), wave_real
+
+
+def loss_and_grads(model, inputs, dev, bucketed, wave_real, window_real, cotangent=None):
+    """``said_loss`` (deterministic, injected draws) on ``dev``: the loss,
+    its gradients with respect to the trainable parameters, the
+    prediction and the loss's gradient at it; with ``cotangent`` (a
+    gradient at the prediction) also the parameters' gradients for it."""
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.train import said_train
+
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in inputs.items()}
+    extra = dict(window_real=window_real, input_length=wave_real) if bucketed else {}
+    captured = []
+    hook = model.register_forward_hook(lambda module, args, out: captured.append(out))
+    loss, _ = said_train.said_loss(model, DiffusionSchedule.create(1000), batch["waveform"], batch["coeffs"],
+                                   batch["cond"], None, None, said_train.TrainConfig(), train=False,
+                                   timesteps=batch["timesteps"], noise=batch["noise"], **extra)
+    hook.remove()
+    params = said_train.trainable_parameters(model)
+    pred = captured[0]
+    grads = torch.autograd.grad(loss, [pred, *params.values()], retain_graph=cotangent is not None)
+    out = {"loss": loss.detach().cpu().double(), "grads": {n: g.detach().cpu() for n, g in zip(params, grads[1:])},
+           "pred": pred.detach().cpu(), "dpred": grads[0].detach().cpu()}
+    if cotangent is not None:
+        shared = torch.autograd.grad(pred, list(params.values()), cotangent.to(dev))
+        out["shared"] = {n: g.detach().cpu() for n, g in zip(params, shared)}
+    return out
+
+
+def compare_training(name, got, want, bounds):
+    """Loss, per-tensor gradient (relative L2) and global-norm comparison;
+    ``got`` and ``want`` are (loss, {name: gradient}). Returns whether
+    every bound held."""
+    loss_rel = abs((got[0] - want[0]) / want[0]).item()
+    rels = {n: rel_l2(got[1][n], want[1][n]) for n in want[1] if want[1][n].norm() > 0}
+    norm_got = torch.sqrt(sum((g.double() ** 2).sum() for g in got[1].values())).item()
+    norm_want = torch.sqrt(sum((g.double() ** 2).sum() for g in want[1].values())).item()
+    norm_rel = abs(norm_got - norm_want) / norm_want
+    worst = max(rels, key=rels.get)
+    ok = loss_rel <= bounds["loss"] and rels[worst] <= bounds["grad"] and norm_rel <= bounds["global norm"]
+    print(f"{name}: loss {got[0].item():.6f} vs {want[0].item():.6f} (rel {loss_rel:.3e}, bound {bounds['loss']:.0e}); "
+          f"gradient rel L2 max {rels[worst]:.3e} ({worst}), median {np.median(list(rels.values())):.3e} over "
+          f"{len(rels)} tensors (bound {bounds['grad']:.2g}); global norm {norm_got:.6f} vs {norm_want:.6f} "
+          f"(rel {norm_rel:.3e}, bound {bounds['global norm']:.2g}) {'ok' if ok else 'outside'}")
+    check(len(rels) >= 0.9 * len(want[1]), f"{name}: most gradients are zero; the comparison would be vacuous")
+    return ok
+
+
+def sign_flips(card, cpu, noise, window_real):
+    """The L1 terms' elements (prediction and velocity) whose sign differs
+    between card and CPU, on the real frames, the largest |CPU residual|
+    among them, and the smaller term's element count N: the loss's
+    gradient is ±1/N there, so one such near-tie moves a gradient by 2/N,
+    about 2/√N of its L2 norm."""
+    def vel(x):
+        return x[:, 1:] - x[:, :-1]
+
+    flips, largest, count = 0, 0.0, card.numel()
+    for r_card, r_cpu, n in ((card - noise, cpu - noise, window_real),
+                             (vel(card) - vel(noise), vel(cpu) - vel(noise), window_real - 1)):
+        flip = torch.sign(r_card[:, :n]) != torch.sign(r_cpu[:, :n])
+        flips += int(flip.sum())
+        count = min(count, flip.numel())
+        if flip.any():
+            largest = max(largest, r_cpu[:, :n][flip].abs().max().item())
+    return flips, largest, count
+
+
+def phase_train_card_vs_cpu(phase, batch, frames, window_real, flash):
+    bucketed = window_real < frames
+    print(f"\n== phase {phase}: full-width training loss and gradients, card (kernels) against CPU (plain twins): "
+          f"batch {batch}, {frames}-frame window{f', {window_real} real (bucketed)' if bucketed else ''}, f32, "
+          f"deterministic, injected timesteps and noise ==")
+    configure_precision("float32")
+    cpu_model = random_init_(build_said_model(), seed=0)
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    inputs, wave_real = train_inputs(batch, frames, window_real, seed=phase)
+    t0 = time.perf_counter()
+    cpu = loss_and_grads(cpu_model, inputs, torch.device("cpu"), bucketed, wave_real, window_real)
+    print(f"cpu: loss and {len(cpu['grads'])} gradients in {time.perf_counter() - t0:.1f} s")
+    zero_launches()
+    t0 = time.perf_counter()
+    card = loss_and_grads(card_model, inputs, DEV, bucketed, wave_real, window_real, cotangent=cpu["dpred"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"card: loss and {len(card['grads'])} gradients in {time.perf_counter() - t0:.1f} s")
+    print(f"launch counts in the card's loss and gradients: {launches}")
+    used = ["group_norm_masked" if bucketed else "group_norm", "layer_norm", "geglu_ffn", "strided_conv_gelu"]
+    check(all(launches[k] > 0 for k in used), f"a kernel of the training path was not launched: {launches}")
+    check(launches["flash_attention"] == (4 + 12 if flash else 0),
+          f"flash launches {launches['flash_attention']} != {4 + 12 if flash else 0}")
+    pred_rel = ((card["pred"] - cpu["pred"]).abs().max() / cpu["pred"].abs().max()).item()
+    flips, largest, count = sign_flips(card["pred"], cpu["pred"], torch.from_numpy(inputs["noise"]), window_real)
+    print(f"prediction card vs CPU: max {pred_rel:.3e} of max |CPU|; L1 elements whose sign differs: {flips} "
+          f"of {count} (largest |CPU residual| among them {largest:.3e})")
+    # a flip (a near-tie of pred and answer) moves the loss's gradient at
+    # the prediction by 2/N, about 2/√N of its norm: each widens the
+    # natural gradients' bounds by that much (none: the stated bounds), the
+    # backward through the kernels is held to the stated bounds on the
+    # CPU's gradient at the prediction, and every flip must be a near-tie
+    widen = flips * 2 / count ** 0.5
+    natural = compare_training(f"{frames} frames card vs CPU, each its own loss gradient",
+                               (card["loss"], card["grads"]), (cpu["loss"], cpu["grads"]),
+                               {**TRAIN_BOUND, "grad": TRAIN_BOUND["grad"] + widen,
+                                "global norm": TRAIN_BOUND["global norm"] + widen})
+    shared = compare_training(f"{frames} frames card vs CPU, the CPU's loss gradient at the prediction on both",
+                              (card["loss"], card["shared"]), (cpu["loss"], cpu["grads"]), TRAIN_BOUND)
+    check(natural and shared and largest <= 1e-4,
+          f"{frames} frames card vs CPU: gradients outside the bounds ({flips} sign flips, largest {largest:.3e})")
+    return card_model
+
+
+def phase_blockwise_backward(model):
+    print("\n== phase 14b: a 4200-frame window on the card: the blockwise attention backward (1024-key blocks) "
+          "against the dense-recompute one ==")
+    inputs, wave_real = train_inputs(1, 4200, 4200, seed=15)
+    calls = []
+    blockwise = attention.chunked_attention_backward
+
+    def spy(*args, block_k=None, **kwargs):
+        calls.append(block_k)
+        return blockwise(*args, block_k=block_k, **kwargs)
+
+    attention.chunked_attention_backward = spy
+    t0 = time.perf_counter()
+    got = loss_and_grads(model, inputs, DEV, False, wave_real, 4200)
+    torch.cuda.synchronize()
+    t_block = time.perf_counter() - t0
+    dense_max, attention.BWD_DENSE_MAX = attention.BWD_DENSE_MAX, 8192
+    t0 = time.perf_counter()
+    want = loss_and_grads(model, inputs, DEV, False, wave_real, 4200)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    attention.BWD_DENSE_MAX, attention.chunked_attention_backward = dense_max, blockwise
+    print(f"attention backward calls {calls} (key blocks); loss and gradients in {t_block:.2f} s blockwise, "
+          f"{t_dense:.2f} s dense recompute")
+    check(calls == [attention.BWD_BLOCK_K] * 4 + [4200] * 4,
+          f"attention backward blocks {calls}: not 4 blockwise then 4 dense (one a UNet self-attention)")
+    check(torch.equal(got["pred"], want["pred"]), "the forward differs between the two backward routes")
+    check(compare_training("4200 frames blockwise vs dense backward", (got["loss"], got["grads"]),
+                           (want["loss"], want["grads"]), {"loss": 0.0, "grad": 1e-4, "global norm": 1e-4}),
+          "4200 frames: the blockwise backward departs from the dense one")
+
+
+def write_train_tree(root, train_clips, val_clips, seconds):
+    """A synthetic BlendVOCA tree: ``train_clips`` sentences for each of 2
+    train persons and ``val_clips`` for 1 val person, ``seconds`` long,
+    random coefficients."""
+    from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES, PERSON_IDS_TRAIN, PERSON_IDS_VAL
+    from said_tpu_torch.utils.blendshape import save_blendshape_coeffs
+
+    rng = np.random.default_rng(20)
+    for persons, clips in ((PERSON_IDS_TRAIN[:2], train_clips), (PERSON_IDS_VAL[:1], val_clips)):
+        for pid in persons:
+            for sub in ("audio", "coeffs"):
+                os.makedirs(os.path.join(root, sub, pid), exist_ok=True)
+            for sid in range(1, clips + 1):
+                write_wav(os.path.join(root, "audio", pid, f"sentence{sid:02}.wav"), seconds, seed=sid)
+                save_blendshape_coeffs(rng.uniform(0, 1, (int(seconds * FPS), 32)).astype(np.float32),
+                                       BLENDSHAPE_CLASSES, os.path.join(root, "coeffs", pid, f"sentence{sid:02}.csv"))
+    return os.path.join(root, "audio"), os.path.join(root, "coeffs")
+
+
+def train_run(label, argv, gpu_line):
+    """One run of the training CLI on the card; the launch counters are
+    zeroed just before the run and read just after."""
+    from said_tpu_torch.cli import train as train_cli
+
+    zero_launches()
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"{label}: wall {wall:.2f} s (model build + random init + data + steps + validation + checkpoints) on "
+          f"{gpu_line}; launch counts in the run: {launches}")
+    return launches
+
+
+def check_train_launches(label, launches, steps, val_batches):
+    """Exact launch counts of ``steps`` train steps and ``val_batches``
+    validation calls, each one forward of the model: the encoder's 6
+    convs and its conv_0 GroupNorm, the UNet's 15 GroupNorms (every one
+    masked: windows are bucketed); validation runs the fused GEGLU (4 a
+    forward), training the unfused one; LayerNorms: the UNet's 12, the
+    encoder's 2 + 2 a layer that layerdrop keeps (train mode: 2 to 26)."""
+    calls = steps + val_batches
+    want = {"group_norm": 0, "group_norm_masked": 16 * calls, "geglu_ffn": 4 * val_batches,
+            "strided_conv_gelu": 6 * calls, "flash_attention": 0}
+    check(all(launches[k] == n for k, n in want.items()), f"{label}: launch counts {launches}, expected {want} and "
+          f"LayerNorm between {14 * calls} and {38 * calls}")
+    check(14 * calls <= launches["layer_norm"] <= 38 * calls, f"{label}: LayerNorm launches {launches['layer_norm']}")
+
+
+def phase_train_cli(gpu_line):
+    print("\n== phase 15: the training CLI at full width on a synthetic tree (2 train persons x 8 sentences and 1 val "
+          "person x 2 sentences of 5 s; batch 8, default windows and buckets): 4 epochs f32, resume, 3 epochs bf16 ==")
+    root = os.path.join(WORK, "train_tree")
+    audio_dir, coeffs_dir = write_train_tree(root, train_clips=8, val_clips=2, seconds=5.0)
+    out_dir, bf16_dir = os.path.join(WORK, "train_out"), os.path.join(WORK, "train_out_bf16")
+    for d in (out_dir, bf16_dir):  # the CLI appends to metrics.jsonl: start from none
+        shutil.rmtree(d, ignore_errors=True)
+    common = ["--device", "cuda", "--audio_dir", audio_dir, "--coeffs_dir", coeffs_dir, "--batch_size", "8",
+              "--seed", "0", "--val_repeat", "1"]
+    # 16 clips in batches of 8: 2 steps an epoch; validation once over 2 clips
+    launches = train_run("f32, 4 epochs", common + [
+        "--output_dir", out_dir, "--dtype", "float32", "--epochs", "4", "--save_period", "2", "--val_period", "4"],
+        gpu_line)
+    check_train_launches("f32, 4 epochs", launches, steps=2 * 4, val_batches=2)
+    launches = train_run("f32, resume from epoch 2, 1 epoch", common + [
+        "--output_dir", out_dir, "--dtype", "float32", "--epochs", "1", "--val_period", "1000", "--save_period", "1000",
+        "--export_pth", "", "--resume", os.path.join(out_dir, "ckpt", "2")], gpu_line)
+    check_train_launches("f32, resume", launches, steps=2, val_batches=0)
+    launches = train_run("bf16, 3 epochs", common + [
+        "--output_dir", bf16_dir, "--dtype", "bfloat16", "--epochs", "3", "--val_period", "1000", "--save_period",
+        "1000"], gpu_line)
+    check_train_launches("bf16, 3 epochs", launches, steps=2 * 3, val_batches=0)
+    # no validation and no checkpoint in this run: its counts are train steps' alone
+    per_step = {k: n / (2 * 3) for k, n in launches.items()}
+    print(f"launches per train step (bf16 run; forward: the backward launches no kernel): {per_step}")
+
+    with open(os.path.join(out_dir, "SAiD", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    with open(os.path.join(bf16_dir, "SAiD", "metrics.jsonl")) as f:
+        bf16_lines = [json.loads(line) for line in f]
+    print("metrics:", [{k: round(v, 5) for k, v in line.items() if k in ("step", "Train/loss", "Validation/loss")}
+                       for line in lines + bf16_lines])
+    check([line["step"] for line in lines] == [1, 2, 3, 4, 1] and len(bf16_lines) == 3,
+          f"metrics lines: {[line['step'] for line in lines]}, bf16 {len(bf16_lines)}")
+    check(all(np.isfinite(line["Train/loss"]) and line["Train/nan_skipped"] == 0.0 for line in lines + bf16_lines),
+          "a train loss is not finite or a step was skipped")
+    check("Validation/loss" in lines[3] and np.isfinite(lines[3]["Validation/loss"]), "no validation at epoch 4")
+    for epoch in (2, 4):
+        check(os.path.isfile(os.path.join(out_dir, "ckpt", str(epoch), "train_state.pt"))
+              and os.path.isfile(os.path.join(out_dir, f"{epoch}.pth")), f"epoch {epoch}: no checkpoint or .pth")
+    wav, csv_path = os.path.join(WORK, "train_check.wav"), os.path.join(WORK, "train_check.csv")
+    write_wav(wav, 2.0, seed=30)
+    cli.main(["--device", "cuda", "--num_steps", "20", "--weights_path", os.path.join(out_dir, "4.pth"),
+              "--audio_path", wav, "--output_path", csv_path])
+    header, coeffs = read_csv(csv_path)
+    print(f"4.pth through the inference CLI (strict load): CSV {coeffs.shape}, min {coeffs.min():.4f} "
+          f"max {coeffs.max():.4f}")
+    check(tuple(header) == ARKIT_BLENDSHAPES and coeffs.shape == (120, 32) and np.isfinite(coeffs).all()
+          and coeffs.min() >= 0.0 and coeffs.max() <= 1.0, "the exported .pth did not generate a valid CSV")
+    # the train step's time, as profile_train reads it: one fixed batch
+    # (8 rows of 300 frames bucketed to 304), after 3 warm-up steps
+    from said_tpu_torch import profile_train
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+    configure_precision("float32")
+    batch, schedule = profile_train.make_batch(DEV), DiffusionSchedule.create(1000)
+    step_ms = {}
+    for dtype in ("float32", "bfloat16"):
+        cell = profile_train.make_cell(dtype, DEV)
+        profile_train.run_steps(cell, schedule, batch, 3)
+        reads = [profile_train.step_ms(cell, schedule, batch, 10) for _ in range(3)]
+        step_ms[dtype] = float(np.median(reads))
+        print(f"{dtype} train step (host, synchronised; profile_train's batch: 8 x 304 frames, 300 real) median "
+              f"{step_ms[dtype]:.2f} ms of 3 x 10 steps [{' '.join(f'{t:.2f}' for t in reads)}] on {gpu_line}")
+        del cell
+    print(json.dumps({"training": {"device": gpu_line, "batch": 8, "f32_train_step_ms": step_ms["float32"],
+                                    "bf16_train_step_ms": step_ms["bfloat16"], "launches_per_step": per_step}}))
+
+
 def main():
     os.makedirs(WORK, exist_ok=True)
     print("== phase 1: environment and build ==")
@@ -870,6 +1264,7 @@ def main():
     for name, (route, src) in SPLIT_ROUTE.items():
         record[name].update(split_route=route, split_source=src)
     phase_kernels(record)
+    phase_autograd()
     phase_request(record, gpu_line)
     model, wave, latents = phase_card_vs_cpu()
     phase_bf16_vs_f32(model, wave, latents)
@@ -880,6 +1275,11 @@ def main():
     phase_eval_cli(record, gpu_line)
     phase_mixed_lengths()
     phase_bucketed_long(record, gpu_line)
+    phase_train_card_vs_cpu(13, batch=2, frames=600, window_real=597, flash=False)
+    card_model = phase_train_card_vs_cpu(14, batch=1, frames=2400, window_real=2400, flash=True)
+    phase_blockwise_backward(card_model)
+    del card_model
+    phase_train_cli(gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)

@@ -15,14 +15,25 @@ its layout and names so each counterpart is found where expected:
   ``SAIDPipeline``.
 - ``said_tpu_torch.convert``   — JAX parameter tree → this package's
   ``state_dict`` (the reference's torch names).
-- ``said_tpu_torch.utils``     — WAV loading and the UNet's waveform fitting.
-- ``said_tpu_torch.cli``       — ``inference`` (WAV → ARKit CSV).
+- ``said_tpu_torch.train``     — the denoiser's training loss, the
+  optimizer (optax's clip + AdamW, written out), EMA and the train step.
+- ``said_tpu_torch.core``      — train-state checkpoints, the ``.pth``
+  export, the metrics log.
+- ``said_tpu_torch.data``      — BlendVOCA discovery, the train and
+  validation datasets and collates, the loader.
+- ``said_tpu_torch.utils``     — WAV loading, the UNet's waveform fitting,
+  blendshape CSVs.
+- ``said_tpu_torch.cli``       — ``inference`` (WAV → ARKit CSV),
+  ``test_inference`` (the eval protocol's generation), ``train``.
 
 Public functions keep the JAX package's channels-last (B, T, C) layout.
 The package imports ``torch`` and never ``jax``, ``flax``, ``pandas`` or
 anything of ``said_tpu``.
 On a CPU tensor every kernel router runs its plain PyTorch twin; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. Where an input needs a
+gradient, a router runs as a ``torch.autograd.Function`` whose backward
+is a PyTorch function (the JAX package's ``custom_vjp`` backwards are
+jnp too).
 """
 
 __version__ = "0.1.0"

@@ -1,34 +1,28 @@
-"""Shared CLI plumbing: model construction, weights, precision, CSV I/O.
-
-The CSV is written with the ``csv`` module (no pandas): a header of the
-32 ARKit blendshape names, then one row per 60 fps frame.
+"""Shared CLI plumbing: model construction, weights, precision; the CSV
+I/O of ``said_tpu_torch.utils.blendshape`` (a header of the 32 ARKit
+blendshape names, then one row per 60 fps frame; no pandas).
 """
 
 from __future__ import annotations
 
 import argparse
-import csv
 import os
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
 
+from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES
 from said_tpu_torch.models.layers import GroupNorm32, LayerNormF32
 from said_tpu_torch.models.said import SAID
-
-# The order of said_tpu/data/assets/ARKit_blendshapes.txt (the CSV header).
-ARKIT_BLENDSHAPES = (
-    "jawForward", "jawLeft", "jawRight", "jawOpen", "mouthClose",
-    "mouthFunnel", "mouthPucker", "mouthLeft", "mouthRight",
-    "mouthSmileLeft", "mouthSmileRight", "mouthFrownLeft", "mouthFrownRight",
-    "mouthDimpleLeft", "mouthDimpleRight", "mouthStretchLeft",
-    "mouthStretchRight", "mouthRollLower", "mouthRollUpper",
-    "mouthShrugLower", "mouthShrugUpper", "mouthPressLeft", "mouthPressRight",
-    "mouthLowerDownLeft", "mouthLowerDownRight", "mouthUpperUpLeft",
-    "mouthUpperUpRight", "cheekPuff", "cheekSquintLeft", "cheekSquintRight",
-    "noseSneerLeft", "noseSneerRight",
+from said_tpu_torch.utils.blendshape import (  # noqa: F401 (the CLIs' CSV I/O)
+    load_blendshape_coeffs,
+    save_blendshape_coeffs,
+    save_blendshape_coeffs_image,
 )
+
+# The CSV header: the order of said_tpu/data/assets/ARKit_blendshapes.txt.
+ARKIT_BLENDSHAPES = tuple(BLENDSHAPE_CLASSES)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,10 +49,11 @@ def configure_precision(dtype: str) -> None:
 
 
 def build_said_model(
-    prediction_type: str = "epsilon", feature_dim: int = -1, dtype: str = "float32"
+    prediction_type: str = "epsilon", feature_dim: int = -1, dtype: str = "float32", remat: bool = False
 ) -> SAID:
-    """The full-width SAID model (wav2vec2-base + the 192-channel UNet)."""
-    return SAID(feature_dim=feature_dim, prediction_type=prediction_type, dtype=DTYPES[dtype])
+    """The full-width SAID model (wav2vec2-base + the 192-channel UNet);
+    ``remat``: gradient checkpointing of the UNet's blocks (training)."""
+    return SAID(feature_dim=feature_dim, prediction_type=prediction_type, dtype=DTYPES[dtype], remat=remat)
 
 
 def random_init_(model: SAID, seed: int = 0) -> SAID:
@@ -110,28 +105,3 @@ def load_said_weights(model: SAID, weights_path: Optional[str], seed: int = 0) -
         renamed[k.replace("parametrizations.weight.original1", "weight_v")] = v
     model.load_state_dict(renamed, strict=True)
     return model
-
-
-def save_blendshape_coeffs(coeffs: np.ndarray, classes: Sequence[str], output_path: str) -> None:
-    """(T, C) array → CSV with the class-name header, one row per frame
-    (each value as the shortest decimal that reads back to the same f32)."""
-    coeffs = np.asarray(coeffs, np.float32)
-    with open(output_path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(classes)
-        writer.writerows([[str(v) for v in row] for row in coeffs])
-
-
-def load_blendshape_coeffs(coeffs_path: str) -> np.ndarray:
-    """CSV (header + one row per frame) → (T, C) float32 array."""
-    with open(coeffs_path, newline="") as f:
-        rows = list(csv.reader(f))[1:]
-    return np.asarray(rows, dtype=np.float32).reshape(len(rows), -1)
-
-
-def save_blendshape_coeffs_image(coeffs: np.ndarray, output_path: str) -> None:
-    """(T, C) coefficients → grayscale PNG (classes × frames)."""
-    from PIL import Image
-
-    orig = (255 * np.asarray(coeffs).T).round()
-    Image.fromarray(orig).convert("L").save(output_path)

@@ -8,6 +8,10 @@ names are the reference's torch names, so the result — like a reference
 
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
 
+One difference: a "layer" feature-extractor norm (every conv layer's
+``norm``) is written as ``conv_layers.{i}.layer_norm``, which the JAX
+exporter leaves out.
+
 Layouts: flax Dense ``kernel`` (in, out) → ``weight`` (out, in); flax
 Conv ``kernel`` (k, in, out) → ``weight`` (out, in, k); norm ``scale`` →
 ``weight``. The positional conv is written as its weight-norm pair
@@ -97,10 +101,12 @@ def wav2vec2_state_dict(params: Mapping, prefix: str = "audio_encoder.") -> Stat
     while f"conv_{i}" in fe:
         layer = fe[f"conv_{i}"]
         _conv(layer["conv"], f"{p}feature_extractor.conv_layers.{i}.conv", out)
-        if "norm_scale" in layer:
-            ln = f"{p}feature_extractor.conv_layers.{i}.layer_norm"
+        ln = f"{p}feature_extractor.conv_layers.{i}.layer_norm"
+        if "norm_scale" in layer:  # "group" norm (conv_0 of wav2vec2-base)
             out[f"{ln}.weight"] = np.asarray(layer["norm_scale"])
             out[f"{ln}.bias"] = np.asarray(layer["norm_bias"])
+        elif "norm" in layer:  # "layer" norm: every conv layer has one
+            _norm(layer["norm"], ln, out)
         i += 1
 
     _norm(params["fp_layer_norm"], f"{p}feature_projection.layer_norm", out)

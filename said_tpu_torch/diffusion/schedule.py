@@ -71,10 +71,26 @@ class DiffusionSchedule:
         """Cumulative alpha at timestep ``t`` as a 0-d float32 tensor."""
         return _f32(self.alphas_cumprod[t])
 
-    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, timestep: int) -> torch.Tensor:
-        """q(x_t | x_0) at one timestep: √a_t · x0 + √(1 − a_t) · ε."""
-        a = self.alpha(timestep)
-        return float(torch.sqrt(a)) * sample + float(torch.sqrt(1.0 - a)) * noise
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, timestep) -> torch.Tensor:
+        """q(x_t | x_0): √a_t · x0 + √(1 − a_t) · ε, at one int timestep
+        (the sampler) or at (B,) timesteps, one a row (training)."""
+        if not isinstance(timestep, torch.Tensor):
+            a = self.alpha(int(timestep))
+            return float(torch.sqrt(a)) * sample + float(torch.sqrt(1.0 - a)) * noise
+        a = self._alphas(timestep, sample)
+        return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target at (B,) timesteps: √a_t · ε − √(1 − a_t) · x0."""
+        a = self._alphas(timesteps, sample)
+        return torch.sqrt(a) * noise - torch.sqrt(1.0 - a) * sample
+
+    def _alphas(self, timesteps: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+        """a_t of (B,) timesteps in the sample's dtype, shaped (B, 1, …, 1)
+        to broadcast over it (the JAX ``_left_broadcast``)."""
+        table = torch.from_numpy(self.alphas_cumprod).to(sample.device)
+        a = table[timesteps.to(device=sample.device, dtype=torch.int64)].to(sample.dtype)
+        return a.reshape(a.shape + (1,) * (sample.ndim - a.ndim))
 
 
 def inference_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:

@@ -23,13 +23,20 @@ class Derived:
     """A tensor derived from a parameter (re-laid out by ``fn``, then cast;
     the default ``fn`` only casts), rebuilt only when the parameter is
     replaced, moved or modified in place (its ``_version`` counter, which
-    ``load_state_dict`` bumps)."""
+    ``load_state_dict`` and the optimizer's in-place step bump).
+
+    The cached tensor is built under ``no_grad``, so no gradient could
+    reach the parameter through it: where grad mode is on and the
+    parameter requires grad (training), the tensor is derived with
+    autograd on every call and not cached."""
 
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor] = lambda p: p):
         self.fn = fn
         self._cache: Dict[torch.dtype, Tuple[tuple, torch.Tensor]] = {}
 
     def __call__(self, param: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if torch.is_grad_enabled() and param.requires_grad:
+            return self.fn(param).to(dtype).contiguous()
         key = (param._version, param.data_ptr(), param.device)
         hit = self._cache.get(dtype)
         if hit is None or hit[0] != key:
@@ -37,6 +44,25 @@ class Derived:
                 hit = (key, self.fn(param).to(dtype).contiguous())
             self._cache[dtype] = hit
         return hit[1]
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn from an explicit
+    ``torch.Generator``: active only where a generator is passed (train
+    mode), the identity otherwise, whatever ``self.training`` says. Kept:
+    each element with probability 1 − p, scaled by 1/(1 − p), as flax's
+    ``nn.Dropout``. No parameters, so ``state_dict`` keys are unchanged."""
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.p, generator)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout with rate ``p`` drawn from ``generator`` (None: identity)."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Frames:

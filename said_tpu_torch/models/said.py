@@ -61,7 +61,8 @@ class SAID(nn.Module):
     """Parameters + forward passes (denoise, audio embedding).
 
     ``dtype`` is the compute dtype (float32 or bfloat16); parameters stay
-    float32, as in the JAX package.
+    float32, as in the JAX package. ``remat``: gradient checkpointing of
+    the UNet's blocks (training).
     """
 
     def __init__(
@@ -73,6 +74,7 @@ class SAID(nn.Module):
         latent_scale: float = 1.0,
         prediction_type: str = "epsilon",
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         self.audio_config = audio_config
@@ -88,7 +90,7 @@ class SAID(nn.Module):
         self.denoiser = _Denoiser(
             UNet1DConditionModel(
                 in_channels=in_channels, out_channels=in_channels,
-                cross_attention_dim=cross_dim, dtype=dtype,
+                cross_attention_dim=cross_dim, dtype=dtype, remat=remat,
             )
         )
         self.null_cond_emb = nn.Parameter(torch.zeros(1, 1, emb_dim))
@@ -105,11 +107,22 @@ class SAID(nn.Module):
         return self.unet(noisy_samples, timesteps, audio_embedding, **kwargs)
 
     def get_audio_embedding(self, waveform: torch.Tensor, num_frames: Optional[int], input_length=None,
-                            num_frames_real=None) -> torch.Tensor:
+                            num_frames_real=None, mask_time_indices=None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T_a) processed waveform → (B, num_frames, E) embedding; in
         bucketed mode ``input_length``/``num_frames_real`` are the real
-        sample and frame counts (ints or (B,) numpy lengths)."""
-        feats = self.audio_encoder(waveform, num_frames, input_length, num_frames_real)
+        sample and frame counts (ints or (B,) numpy lengths).
+
+        Training (the JAX ``get_audio_embedding`` with
+        ``stop_encoder_grad``, said_tpu/models/said.py:129-155): the
+        encoder is frozen, so it runs under ``no_grad`` and no gradient
+        (nor its cost) reaches it; the trainable ``audio_proj_layer``
+        follows. ``mask_time_indices`` (B, num_frames) bool applies
+        spec-augment; ``generator`` runs the encoder in train mode
+        (dropout and layerdrop drawn from it), None deterministic."""
+        with torch.no_grad():
+            feats = self.audio_encoder(waveform, num_frames, input_length, num_frames_real, mask_time_indices,
+                                       generator)
         if self.audio_proj_layer is not None:
             feats = self.audio_proj_layer(feats)
         return feats

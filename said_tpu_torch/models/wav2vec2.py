@@ -16,9 +16,17 @@ wav2vec2-base). Length-bucketed mode (``input_length`` /
 ``num_frames_real``) carries each conv layer's real length, zeroes pads
 after every layer, resamples with the dynamic interpolation and masks
 padded keys in every attention, so the real frames equal an unpadded
-run. Not ported yet: spec-augment (``compute_time_mask_indices``,
-training only), layerdrop and dropout, and the "layer"
-feature-extractor norm.
+run.
+
+Train mode (a ``torch.Generator`` passed as ``generator``; the SAiD
+trainer runs the frozen encoder so, as the reference leaves the HF module
+in train mode): feature-projection, hidden, activation and
+attention-probability dropout and layerdrop at the config's rates, drawn
+from that generator; attention is then always the dense form (the
+probabilities are dropped out). Spec-augment: ``mask_time_indices``
+(``compute_time_mask_indices``, host-side numpy) replaces masked frames
+by the learned ``masked_spec_embed``. Not ported yet: the "layer"
+feature-extractor norm's forward.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from said_tpu_torch.models.layers import Dense, Derived, Frames, GroupNorm32, LayerNormF32
-from said_tpu_torch.ops.attention import self_attention
+from said_tpu_torch.models.layers import Dense, Derived, Frames, GroupNorm32, LayerNormF32, dropout
+from said_tpu_torch.ops.attention import dense_attention, self_attention
 from said_tpu_torch.ops.conv import strided_conv_gelu
 from said_tpu_torch.ops.resample import linear_interp_time, linear_interp_time_dynamic
 
@@ -54,6 +62,12 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     output_hidden_size: int = 768
+    # train-mode stochasticity (HF wav2vec2-base values)
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    feat_proj_dropout: float = 0.1
+    layerdrop: float = 0.1
 
     def feature_extract_output_length(self, input_length):
         """Output frame count of the conv stack for a waveform length (an
@@ -185,16 +199,22 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int, attention_dropout: float = 0.0):
         super().__init__()
-        self.heads = heads
+        self.heads, self.attention_dropout = heads, attention_dropout
         self.q_proj = Dense(hidden, hidden)
         self.k_proj = Dense(hidden, hidden)
         self.v_proj = Dense(hidden, hidden)
         self.out_proj = Dense(hidden, hidden)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = self_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.heads, lengths)
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if generator is None:
+            out = self_attention(q, k, v, self.heads, lengths)
+        else:  # train mode: dense at any length, its probabilities dropped out
+            out = dense_attention(q, k, v, self.heads, lengths,
+                                  probs=lambda p: dropout(p, self.attention_dropout, generator))
         return self.out_proj(out)
 
 
@@ -204,8 +224,10 @@ class FeedForward(nn.Module):
         self.intermediate_dense = Dense(hidden, intermediate)
         self.output_dense = Dense(intermediate, hidden)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+    def forward(self, x: torch.Tensor, activation_dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(F.gelu(self.intermediate_dense(x)), activation_dropout, generator)
+        return self.output_dense(h)
 
 
 class EncoderLayer(nn.Module):
@@ -214,31 +236,45 @@ class EncoderLayer(nn.Module):
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         h = config.hidden_size
-        self.attention = Attention(h, config.num_attention_heads)
+        self.config = config
+        self.attention = Attention(h, config.num_attention_heads, config.attention_dropout)
         self.layer_norm = LayerNormF32(h, config.layer_norm_eps)
         self.feed_forward = FeedForward(h, config.intermediate_size)
         self.final_layer_norm = LayerNormF32(h, config.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.layer_norm(x + self.attention(x, lengths))
-        return self.final_layer_norm(x + self.feed_forward(x))
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        p = self.config.hidden_dropout
+        x = self.layer_norm(x + dropout(self.attention(x, lengths, generator), p, generator))
+        ff = self.feed_forward(x, self.config.activation_dropout, generator)
+        return self.final_layer_norm(x + dropout(ff, p, generator))
 
 
 class Encoder(nn.Module):
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
+        self.config = config
         self.pos_conv_embed = PositionalConvEmbedding(config)
         self.layer_norm = LayerNormF32(config.hidden_size, config.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_hidden_layers))
 
-    def forward(self, h: torch.Tensor, frames: Optional[Frames] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, frames: Optional[Frames] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if frames is not None:
             # the SAME-padded positional conv must see the zero boundary an
             # unpadded run would
             h = frames.zero(h)
         h = self.layer_norm(h + self.pos_conv_embed(h))
-        for layer in self.layers:
-            h = layer(h, None if frames is None else frames.lengths)
+        h = dropout(h, self.config.hidden_dropout, generator)
+        skip = [False] * len(self.layers)
+        if generator is not None and self.config.layerdrop > 0.0:
+            # layerdrop: HF skips a whole layer with this probability in
+            # train mode (one draw a layer, read on the host at once)
+            draws = torch.rand(len(self.layers), generator=generator, device=generator.device)
+            skip = (draws < self.config.layerdrop).tolist()
+        for layer, skipped in zip(self.layers, skip):
+            if not skipped:
+                h = layer(h, None if frames is None else frames.lengths, generator)
         return h
 
 
@@ -277,14 +313,72 @@ class Wav2Vec2Encoder(nn.Module):
                 feat_len = num_frames_real
         return feats, feat_len
 
-    def encode_features(self, feats: torch.Tensor, real_frames=None) -> torch.Tensor:
+    def encode_features(self, feats: torch.Tensor, real_frames=None, mask_time_indices=None,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Feature projection + transformer encoder; ``real_frames`` (an int
-        or (B,) numpy lengths) in bucketed mode."""
-        h = self.feature_projection(feats)
+        or (B,) numpy lengths) in bucketed mode; ``mask_time_indices``
+        (B, T) bool (spec-augment) replaces masked frames by
+        ``masked_spec_embed``; ``generator`` runs train mode."""
+        h = dropout(self.feature_projection(feats), self.config.feat_proj_dropout, generator)
+        if mask_time_indices is not None:
+            m = torch.as_tensor(mask_time_indices, device=h.device)[:, :, None]
+            h = torch.where(m, self.masked_spec_embed.to(h.dtype), h)
         frames = None if real_frames is None else Frames(real_frames, h.shape[0], h.shape[1], h.device, h.dtype)
-        return self.encoder(h, frames)
+        return self.encoder(h, frames, generator)
 
     def forward(self, input_values: torch.Tensor, num_frames=None, input_length=None,
-                num_frames_real=None) -> torch.Tensor:
+                num_frames_real=None, mask_time_indices=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feats, real = self.extract_features(input_values, num_frames, input_length, num_frames_real)
-        return self.encode_features(feats, real)
+        return self.encode_features(feats, real, mask_time_indices, generator)
+
+
+def compute_time_mask_indices(
+    shape: Tuple[int, int],
+    mask_prob: float = 0.05,
+    mask_length: int = 10,
+    rng: Optional[np.random.Generator] = None,
+    min_masks: int = 2,
+    input_lengths: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Host-side spec-augment time-mask sampler (HF's
+    ``_compute_mask_indices``), the JAX package's
+    ``compute_time_mask_indices`` (said_tpu/models/wav2vec2.py:497) draw
+    for draw, so the same ``np.random.Generator`` gives the same mask:
+    one epsilon draw per call for probabilistic rounding, per-row span
+    counts from ``input_lengths``, the two clamps (spans·length ≤ T;
+    spans ≤ input_length − mask_length + 1), and dummy-index padding of
+    short rows. Returns a (B, T) bool array; True marks masked steps."""
+    b, t = shape
+    rng = rng or np.random.default_rng()
+    mask = np.zeros((b, t), dtype=bool)
+    if mask_length >= t:
+        # HF raises for mask_length > T; training windows are >= 120 frames
+        return mask
+    if input_lengths is None:
+        input_lengths = [t] * b
+
+    epsilon = rng.random()
+
+    def num_spans(input_length: int) -> int:
+        n = int(mask_prob * input_length / mask_length + epsilon)
+        n = max(n, min_masks)
+        if n * mask_length > t:
+            n = t // mask_length
+        if input_length - (mask_length - 1) < n:
+            n = max(input_length - (mask_length - 1), 0)
+        return n
+
+    max_spans = num_spans(t)
+    if max_spans == 0:
+        return mask
+
+    for i, input_length in enumerate(input_lengths):
+        n = num_spans(int(input_length))
+        starts = rng.choice(int(input_length) - (mask_length - 1), size=n, replace=False)
+        # a row shorter than one span pads with T - 1 (a padding frame), as HF
+        dummy = t - 1 if len(starts) == 0 else starts[0]
+        starts = np.concatenate([starts, np.full(max_spans - n, dummy, dtype=np.int64)])
+        for s in starts:
+            mask[i, s : min(s + mask_length, t)] = True
+    return mask

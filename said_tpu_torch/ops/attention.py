@@ -16,6 +16,12 @@ pre-gathered keys, ``banded_attention_cached``, and the dense branch of
   (:322, K2); its source note says what bounds it and how it is laid
   out. Any other device raises.
 
+Gradients: the dense path is plain PyTorch; past ``DENSE_MAX`` the router
+runs as ``_FlashAttentionFn`` (forward as above) whose backward,
+``attention_backward``, recomputes the scores (the JAX ``_attn_bwd_route``,
+:734): every key at once up to ``BWD_DENSE_MAX`` keys, in
+``BWD_BLOCK_K``-key blocks beyond, never a (T, S) tensor past 4096 keys.
+
 Nothing catches a kernel failure to fall back. The TPU router's VMEM
 thresholds (``_fullk_smax``, ``_blocked_blocks``) have no counterpart:
 the one kernel streams any key length.
@@ -24,10 +30,12 @@ the one kernel streams any key length.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
 from said_tpu_torch import _build
+from said_tpu_torch.ops import needs_grad
 
 _NEG_INF = float(torch.finfo(torch.float32).max)
 
@@ -74,9 +82,12 @@ def dense_attention(
     v: torch.Tensor,
     num_heads: int,
     lengths: torch.Tensor | None = None,
+    probs: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Materialized-scores attention: q (B, T, H·D), k/v (B, S, H·D);
-    keys at or past a row's ``lengths`` entry (B,) are masked."""
+    keys at or past a row's ``lengths`` entry (B,) are masked. ``probs``,
+    if given, maps the (B, H, T, S) probabilities before the product with
+    v (the encoder's train-mode dropout)."""
     b, t, inner = q.shape
     s = k.shape[1]
     d = inner // num_heads
@@ -88,6 +99,8 @@ def dense_attention(
         keymask = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
         scores = scores.masked_fill(~keymask[:, None, None, :], -math.inf)
     attn = _softmax_f32(scores, qh.dtype)
+    if probs is not None:
+        attn = probs(attn)
     out = torch.einsum("bhts,bshd->bthd", attn, vh)
     return out.reshape(b, t, inner)
 
@@ -205,6 +218,32 @@ def flash_attention_kernel(
 flash_attention_kernel.launches = 0
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """Self-attention past ``DENSE_MAX`` frames with a gradient: the
+    router's forward (the kernel on CUDA, the plain version on the CPU),
+    ``attention_backward`` for the gradient; saves q, k, v, the output and
+    the lengths, never a (T, S) tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, lengths):
+        out = _flash_route(q, k, v, num_heads, lengths)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, out, lengths)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lengths = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, g, ctx.num_heads, lengths)
+        return dq, dk, dv, None, None
+
+
+def _flash_route(q, k, v, num_heads, lengths):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads, lengths)
+    return flash_attention_kernel(q, k, v, num_heads, lengths)
+
+
 def self_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -214,11 +253,100 @@ def self_attention(
 ) -> torch.Tensor:
     """Router for self-attention (the JAX ``flash_attention_flat`` /
     ``_flash_route``), with optional (B,) int32 real lengths on q's device:
-    dense up to ``DENSE_MAX`` frames on any device; beyond, the plain flash
-    version on the CPU and the flash kernel on any other device (which
-    raises unless it is CUDA)."""
+    dense up to ``DENSE_MAX`` frames on any device (differentiable as plain
+    PyTorch); beyond, the plain flash version on the CPU and the flash
+    kernel on any other device (which raises unless it is CUDA), through
+    ``_FlashAttentionFn`` where an input needs a gradient."""
     if max(q.shape[1], k.shape[1]) <= DENSE_MAX:
         return dense_attention(q, k, v, num_heads, lengths)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, num_heads, lengths)
-    return flash_attention_kernel(q, k, v, num_heads, lengths)
+    if needs_grad(q, k, v):
+        return _FlashAttentionFn.apply(q, k, v, num_heads, lengths)
+    return _flash_route(q, k, v, num_heads, lengths)
+
+
+# ------------------------------------------------------------- backward
+
+# Backward routing (the JAX ``_attn_bwd_route``,
+# said_tpu/ops/pallas_attention.py:734): up to BWD_DENSE_MAX keys the
+# dense recompute, every key's score of a row at once; beyond, the
+# blockwise backward in BWD_BLOCK_K-key blocks, whose memory is
+# O(T · block) (``_BWD_DENSE_MAX``, ``_BWD_BLOCK_K``, :613-614).
+BWD_DENSE_MAX = 4096
+BWD_BLOCK_K = 1024
+
+
+def attention_backward(q, k, v, out, g, num_heads, lengths=None):
+    """(dq, dk, dv) of attention over flat (B, T, H·D) projections for the
+    output gradient g: ``chunked_attention_backward`` with one block of all
+    keys (the dense recompute) up to ``BWD_DENSE_MAX`` keys, in blocks of
+    ``BWD_BLOCK_K`` beyond. One function for both, so bf16 keeps bf16
+    operands with f32 accumulation and f32 softmax statistics on both
+    routes (the JAX dense route differentiates bf16 einsums instead)."""
+    s = k.shape[1]
+    block_k = s if s <= BWD_DENSE_MAX else BWD_BLOCK_K
+    return chunked_attention_backward(q, k, v, out, g, num_heads, lengths, block_k=block_k)
+
+
+def chunked_attention_backward(q, k, v, out, g, num_heads, lengths=None, block_k=None):
+    """The blockwise attention backward (the JAX ``_chunked_attn_bwd``,
+    said_tpu/ops/pallas_attention.py:617): scores recomputed a block of
+    ``block_k`` keys at a time, twice: once for each row's log-sum-exp,
+    once for dq, dk and dv by the flash identities ds = p ⊙ (dp − δ),
+    δ = rowsum(g ⊙ out). Memory O(B·H·T·block_k); no (T, S) tensor.
+
+    Numerics as the JAX function: bf16 inputs keep bf16 operands with f32
+    accumulation (here: operands rounded to bf16, then multiplied in f32,
+    so every product is exact and every sum f32) and f32 softmax
+    statistics; f32 inputs are f32 throughout. Keys at or past a row's
+    length are masked."""
+    in_dtype = q.dtype
+    b, t, inner = q.shape
+    s = k.shape[1]
+    h = num_heads
+    d = inner // h
+    scale = d**-0.5
+    block_k = block_k or BWD_BLOCK_K
+
+    def heads(x, n):  # (B, n, H·D) -> (B, H, n, D), f32 of the working-type operand
+        return x.to(torch.bfloat16 if in_dtype == torch.bfloat16 else torch.float32).float().reshape(
+            b, n, h, d).transpose(1, 2)
+
+    qh, gh, kh, vh = heads(q, t), heads(g, t), heads(k, s), heads(v, s)
+    # delta subtracts from dp: f32 elementwise from the unrounded values
+    delta = (g.float() * out.float()).reshape(b, t, h, d).sum(dim=-1).transpose(1, 2)  # (B, H, T)
+    lens = None if lengths is None else lengths.to(device=q.device, dtype=torch.int64)
+
+    def block_scores(k0, k1):
+        sc = (qh @ kh[:, :, k0:k1].transpose(-1, -2)) * scale  # (B, H, T, block) f32
+        if lens is not None:
+            col = torch.arange(k0, k1, device=q.device)
+            sc = sc.masked_fill(col[None, None, None, :] >= lens[:, None, None, None], -math.inf)
+        return sc
+
+    blocks = [(k0, min(k0 + block_k, s)) for k0 in range(0, s, block_k)]
+    m = torch.full((b, h, t), -math.inf, device=q.device)
+    lsum = torch.zeros((b, h, t), device=q.device)
+    for k0, k1 in blocks:
+        sc = block_scores(k0, k1)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        # m_new = -inf: every key so far masked; the sum stays 0
+        safe = torch.where(m_new == -math.inf, 0.0, m_new)
+        lsum = lsum * torch.exp(m - safe) + torch.exp(sc - safe[..., None]).sum(dim=-1)
+        m = m_new
+    lse = m + torch.log(lsum)
+
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if in_dtype == torch.bfloat16 else (lambda x: x)
+    dq = torch.zeros((b, h, t, d), device=q.device)
+    dk, dv = [], []
+    for k0, k1 in blocks:
+        p = torch.exp(block_scores(k0, k1) - lse[..., None])
+        dv.append(rnd(p).transpose(-1, -2) @ gh)
+        dp = gh @ vh[:, :, k0:k1].transpose(-1, -2)
+        ds = rnd(p * (dp - delta[..., None]) * scale)
+        dq = dq + ds @ kh[:, :, k0:k1]
+        dk.append(ds.transpose(-1, -2) @ qh)
+
+    def flat(x, n):
+        return x.transpose(1, 2).reshape(b, n, inner).to(in_dtype)
+
+    return flat(dq, t), flat(torch.cat(dk, dim=2), s), flat(torch.cat(dv, dim=2), s)

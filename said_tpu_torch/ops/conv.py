@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from said_tpu_torch import _build
+from said_tpu_torch.ops import needs_grad
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # csrc/strided_conv_gelu.cu: the tensor-core routes' output tile (rows and
@@ -109,10 +110,35 @@ def strided_conv_gelu_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tens
 def strided_conv_gelu(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Router: plain twin on the CPU, the CUDA kernel otherwise. The
     caller passes the kernel in x's dtype and, to spare a copy a call,
-    packed (the modules cache both)."""
+    packed (the modules cache both). Where an input needs a gradient the
+    call goes through ``_ConvFn``, whose backward differentiates the plain
+    twin, as the JAX ``_conv_bwd`` (said_tpu/ops/pallas_conv.py:112) does
+    (the frozen encoder runs it under ``no_grad``)."""
+    if needs_grad(x, kernel):
+        return _ConvFn.apply(x, kernel)
+    return _conv_route(x, kernel)
+
+
+def _conv_route(x, kernel):
     if x.device.type == "cpu":
         return strided_conv_gelu_plain(x, kernel)
     return strided_conv_gelu_kernel(x, kernel if is_packed(kernel) else pack_weight(kernel))
+
+
+class _ConvFn(torch.autograd.Function):
+    """The conv router with a gradient: the kernel (or twin) forward, the
+    plain twin's autograd, recomputed, backward; saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return _conv_route(x, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            return torch.autograd.grad(strided_conv_gelu_plain(*inputs), inputs, g)
 
 
 def strided_conv_gelu_kernel(x: torch.Tensor, kernel: torch.Tensor, *, _split: int | None = None) -> torch.Tensor:

@@ -21,6 +21,7 @@ import math
 import torch
 
 from said_tpu_torch import _build
+from said_tpu_torch.ops import needs_grad
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -89,10 +90,36 @@ def geglu_ffn(
 ) -> torch.Tensor:
     """Router: plain twin on the CPU, the CUDA kernel otherwise. The
     caller passes the weights in x's dtype (the modules cache that cast)
-    and the biases in float32."""
+    and the biases in float32. Where an input needs a gradient the call
+    goes through ``_GegluFn``, whose backward differentiates the plain
+    twin, as the JAX ``_ffn_bwd`` (said_tpu/ops/pallas_ffn.py:78) does;
+    sampling and validation run it, training the unfused path with
+    dropout."""
+    if needs_grad(x, w1, b1, w2, b2):
+        return _GegluFn.apply(x, w1, b1, w2, b2)
+    return _geglu_route(x, w1, b1, w2, b2)
+
+
+def _geglu_route(x, w1, b1, w2, b2):
     if x.device.type == "cpu":
         return geglu_ffn_plain(x, w1, b1, w2, b2)
     return geglu_ffn_kernel(x, w1, b1, w2, b2)
+
+
+class _GegluFn(torch.autograd.Function):
+    """The GEGLU router with a gradient: the kernel (or twin) forward, the
+    plain twin's autograd, recomputed, backward; saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _geglu_route(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            return torch.autograd.grad(geglu_ffn_plain(*inputs), inputs, g)
 
 
 def geglu_ffn_kernel(

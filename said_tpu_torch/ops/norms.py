@@ -57,6 +57,12 @@ shape alone (``group_norm_plan``):
   arithmetic.
 
 Neither route uses atomics: the result is the same bits on every call.
+
+Gradients: where an input needs one, a router runs as a
+``torch.autograd.Function`` whose forward is the same route and whose
+backward is the closed form in PyTorch (``layer_norm_backward``,
+``group_norm_backward``; f32 statistics, the vector-Jacobian products the
+JAX package takes of its jnp twins), from the saved inputs alone.
 Routers: a CPU tensor runs the plain twin; any other tensor goes to the
 kernel, whose wrapper raises unless it is a contiguous CUDA tensor of a
 supported dtype. Triton is imported (for the GroupNorm split), and the
@@ -73,6 +79,7 @@ from typing import NamedTuple
 import torch
 
 from said_tpu_torch import _build
+from said_tpu_torch.ops import needs_grad
 
 # triton.language, bound by ``_kernels()`` on the first launch. The kernel
 # bodies below resolve ``tl`` from this module's globals when Triton
@@ -274,16 +281,150 @@ def group_norm_cluster_plain(
     return out.to(x.dtype)
 
 
+# ------------------------------------------------------------- backwards
+
+
+def layer_norm_backward(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dweight, dbias) of ``layer_norm_plain`` at x for the output
+    gradient g, in closed form with f32 statistics: the vector-Jacobian
+    product the JAX package takes of ``_layer_norm_jnp``
+    (said_tpu/ops/norms.py:138-146). With x̂ = (x − mean)·rstd and
+    d = g·w: dx = rstd · (d − mean(d) − x̂ · mean(d·x̂)) over the row."""
+    c = x.shape[-1]
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(xf.var(dim=-1, keepdim=True, correction=0) + eps)
+    xhat = (xf - mean) * rstd
+    gf = g.float()
+    d = gf * weight.float()
+    dx = rstd * (d - d.mean(dim=-1, keepdim=True) - xhat * (d * xhat).mean(dim=-1, keepdim=True))
+    rows = gf.reshape(-1, c)
+    return dx.to(x.dtype), (rows * xhat.reshape(-1, c)).sum(0), rows.sum(0)
+
+
+def group_norm_backward(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    lengths: torch.Tensor | None,
+    eps: float,
+    act: str,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dweight, dbias) of ``group_norm_plain`` (``lengths`` None) or
+    ``group_norm_masked_plain`` at x for the output gradient g, in closed
+    form with f32 statistics: the vector-Jacobian product the JAX package
+    takes of ``_group_norm_jnp`` / ``_group_norm_masked_jnp``
+    (said_tpu/ops/norms.py:105-111, 211-224).
+
+    Per (batch, group), with n the count of real elements (m_t = 1 for
+    a real frame), x̂ = (x − mean)·rstd over every frame and d = ∂L/∂x̂:
+    dx_t = rstd · (d_t − m_t/n · (Σ d + x̂_t · Σ d·x̂)), the sums over every
+    frame (a padded frame's output is normalised with the real frames'
+    statistics, so its gradient reaches them too). SiLU first scales g
+    by its derivative at the norm's output."""
+    b, t, c = x.shape
+    cg = c // num_groups
+    xf = x.float().reshape(b, t, num_groups, cg)
+    if lengths is None:
+        m = None
+        n = float(t * cg)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = xf.var(dim=(1, 3), keepdim=True, correction=0)
+    else:
+        lens = lengths.to(device=x.device, dtype=torch.int64)
+        m = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).float()[:, :, None, None]
+        n = (m.sum(dim=1, keepdim=True) * cg).clamp(min=1.0)
+        mean = (xf * m).sum(dim=(1, 3), keepdim=True) / n
+        var = (((xf - mean) * m) ** 2).sum(dim=(1, 3), keepdim=True) / n
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    wf = weight.float().reshape(num_groups, cg)
+    gf = g.float().reshape(b, t, num_groups, cg)
+    if act == "silu":
+        y = xhat * wf + bias.float().reshape(num_groups, cg)
+        s = torch.sigmoid(y)
+        gf = gf * (s * (1.0 + y * (1.0 - s)))
+    d = gf * wf
+    s1 = d.sum(dim=(1, 3), keepdim=True)
+    s2 = (d * xhat).sum(dim=(1, 3), keepdim=True)
+    corr = (s1 + xhat * s2) / n
+    dx = rstd * (d - (corr if m is None else m * corr))
+    dw = (gf * xhat).sum(dim=(0, 1)).reshape(c)
+    db = gf.sum(dim=(0, 1)).reshape(c)
+    return dx.reshape(b, t, c).to(x.dtype), dw, db
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm with a gradient: the router's forward, the closed-form
+    ``layer_norm_backward``; saves x, weight and bias only."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight, bias)
+        return _layer_norm_route(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, _ = ctx.saved_tensors
+        dx, dw, db = layer_norm_backward(x, weight, ctx.eps, g)
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """GroupNorm (plain or masked) with a gradient: the router's forward,
+    the closed-form ``group_norm_backward``; saves x, weight, bias and the
+    lengths only."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups, weight, bias, lengths, eps, act):
+        ctx.args = (num_groups, eps, act)
+        ctx.save_for_backward(x, weight, bias, lengths)
+        if lengths is None:
+            return _group_norm_route(x, num_groups, weight, bias, eps, act)
+        return _group_norm_masked_route(x, num_groups, weight, bias, lengths, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, lengths = ctx.saved_tensors
+        num_groups, eps, act = ctx.args
+        dx, dw, db = group_norm_backward(x, num_groups, weight, bias, lengths, eps, act, g)
+        return dx, None, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+
+
 # --------------------------------------------------------------- routers
+
+
+def _layer_norm_route(x, weight, bias, eps):
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, weight, bias, eps)
+    return layer_norm_kernel(x, weight, bias, eps)
+
+
+def _group_norm_route(x, num_groups, weight, bias, eps, act):
+    if x.device.type == "cpu":
+        return group_norm_plain(x, num_groups, weight, bias, eps, act)
+    return group_norm_kernel(x, num_groups, weight, bias, eps, act)
+
+
+def _group_norm_masked_route(x, num_groups, weight, bias, lengths, eps, act):
+    if x.device.type == "cpu":
+        return group_norm_masked_plain(x, num_groups, weight, bias, lengths, eps, act)
+    return group_norm_masked_kernel(x, num_groups, weight, bias, lengths, eps, act)
 
 
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """LayerNorm router: plain twin on the CPU, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps)
-    return layer_norm_kernel(x, weight, bias, eps)
+    """LayerNorm router: plain twin on the CPU, the CUDA kernel otherwise;
+    differentiable (``layer_norm_backward``) where an input needs it."""
+    if needs_grad(x, weight, bias):
+        return _LayerNormFn.apply(x, weight, bias, eps)
+    return _layer_norm_route(x, weight, bias, eps)
 
 
 def group_norm(
@@ -295,10 +436,11 @@ def group_norm(
     act: str = "none",
 ) -> torch.Tensor:
     """GroupNorm(+SiLU) router: plain twin on the CPU, the kernels
-    otherwise."""
-    if x.device.type == "cpu":
-        return group_norm_plain(x, num_groups, weight, bias, eps, act)
-    return group_norm_kernel(x, num_groups, weight, bias, eps, act)
+    otherwise; differentiable (``group_norm_backward``) where an input
+    needs it."""
+    if needs_grad(x, weight, bias):
+        return _GroupNormFn.apply(x, num_groups, weight, bias, None, eps, act)
+    return _group_norm_route(x, num_groups, weight, bias, eps, act)
 
 
 def group_norm_masked(
@@ -311,10 +453,11 @@ def group_norm_masked(
     act: str = "none",
 ) -> torch.Tensor:
     """Masked GroupNorm(+SiLU) router, (B,) real lengths: plain twin on
-    the CPU, the kernels otherwise."""
-    if x.device.type == "cpu":
-        return group_norm_masked_plain(x, num_groups, weight, bias, lengths, eps, act)
-    return group_norm_masked_kernel(x, num_groups, weight, bias, lengths, eps, act)
+    the CPU, the kernels otherwise; differentiable where an input needs
+    it."""
+    if needs_grad(x, weight, bias):
+        return _GroupNormFn.apply(x, num_groups, weight, bias, lengths, eps, act)
+    return _group_norm_masked_route(x, num_groups, weight, bias, lengths, eps, act)
 
 
 # ------------------------------------------------------- Triton kernels

@@ -534,3 +534,87 @@ def test_self_attention_routes_long_clips_to_the_kernel(dev):
     short = q[:, : attention.DENSE_MAX]
     attention.self_attention(short, short, short, 6)
     assert attention.flash_attention_kernel.launches == before + 1
+
+
+# ------------------------------------------------- the autograd wrappers
+#
+# Each router, where an input needs a gradient, runs its kernel forward
+# and a PyTorch backward (``torch.autograd.Function``). On the card: the
+# forward equals the plain twin, the backward equals autograd through the
+# plain twin (bound as above, per input gradient), the kernel is launched
+# once a forward and never by the backward.
+
+
+def _grad_case(dev, dtype, wrapper, plain, inputs, kernel, lengths=None):
+    inputs = [t.requires_grad_() for t in inputs]
+    before = kernel.launches
+    got = wrapper(*inputs)
+    assert got.grad_fn is not None and kernel.launches == before + 1
+    g = _randn(tuple(got.shape), 90, dev, dtype)
+    if lengths is not None:  # a padded query row's gradient is 0 in the model (see phase 2b)
+        g = g * (torch.arange(got.shape[1], device=dev)[None, :, None] < lengths[:, None, None]).to(dtype)
+    grads = torch.autograd.grad(got, inputs, g)
+    assert kernel.launches == before + 1  # the backward launches no kernel
+    want = plain(*inputs)
+    _assert_close(got, want, dtype)
+    for a, r in zip(grads, torch.autograd.grad(want, inputs, g)):
+        _assert_close(a, r, a.dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("shape,groups,lengths", [((2, 600, 192), 32, None), ((2, 600, 192), 32, [597, 597]),
+                                                  ((8, 304, 192), 32, [297] * 8), ((2, 4200, 192), 32, [4200, 3000])])
+def test_group_norm_autograd_wrapper(dev, dtype, act, shape, groups, lengths):
+    c = shape[-1]
+    x = _randn(shape, 60, dev, dtype, 2.0, 0.5)
+    w, b = _randn((c,), 61, dev, torch.float32), _randn((c,), 62, dev, torch.float32)
+    if lengths is None:
+        _grad_case(dev, dtype, lambda x, w, b: norms.group_norm(x, groups, w, b, 1e-5, act),
+                   lambda x, w, b: norms.group_norm_plain(x, groups, w, b, 1e-5, act), [x, w, b],
+                   norms.group_norm_kernel)
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        _grad_case(dev, dtype, lambda x, w, b: norms.group_norm_masked(x, groups, w, b, lens, 1e-5, act),
+                   lambda x, w, b: norms.group_norm_masked_plain(x, groups, w, b, lens, 1e-5, act), [x, w, b],
+                   norms.group_norm_masked_kernel)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", [(2, 600, 192), (8, 304, 192), (1, 300, 768)])
+def test_layer_norm_autograd_wrapper(dev, dtype, shape):
+    c = shape[-1]
+    x = _randn(shape, 63, dev, dtype, 2.0, 0.5)
+    w, b = _randn((c,), 64, dev, torch.float32), _randn((c,), 65, dev, torch.float32)
+    _grad_case(dev, dtype, norms.layer_norm, norms.layer_norm_plain, [x, w, b], norms.layer_norm_kernel)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,t,lengths", [(1, 2400, None), (2, 2400, [2400, 2100]), (1, 4200, None),
+                                         (2, 4200, [4200, 3000])])
+def test_flash_attention_autograd_wrapper(dev, dtype, b, t, lengths):
+    """2400 keys: the dense-recompute backward; 4200: the blockwise one."""
+    q, k, v = (_randn((b, t, 192), 66 + i, dev, dtype) for i in range(3))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    _grad_case(dev, dtype, lambda q, k, v: attention.self_attention(q, k, v, 6, lens),
+               lambda q, k, v: attention.flash_attention_plain(q, k, v, 6, lens), [q, k, v],
+               attention.flash_attention_kernel, lens)
+
+
+def test_geglu_and_conv_autograd_wrappers(dev):
+    x = _randn((2, 600, 192), 70, dev, torch.float32)
+    w1, b1 = _randn((1536, 192), 71, dev, torch.float32, 0.05), _randn((1536,), 72, dev, torch.float32, 0.1)
+    w2, b2 = _randn((192, 768), 73, dev, torch.float32, 0.05), _randn((192,), 74, dev, torch.float32, 0.1)
+    _grad_case(dev, torch.float32, ffn.geglu_ffn, ffn.geglu_ffn_plain, [x, w1, b1, w2, b2], ffn.geglu_ffn_kernel)
+    x = _randn((1, 3999, 512), 75, dev, torch.float32)
+    kw = conv.pack_weight(_randn((3, 512, 512), 76, dev, torch.float32, 0.03))
+    _grad_case(dev, torch.float32, conv.strided_conv_gelu, conv.strided_conv_gelu_plain, [x, kw],
+               conv.strided_conv_gelu_kernel)
+
+
+def test_routers_record_no_gradient_without_grad(dev):
+    x = _randn((2, 40, 192), 77, dev, torch.float32).requires_grad_()
+    w, b = torch.ones(192, device=dev, requires_grad=True), torch.zeros(192, device=dev, requires_grad=True)
+    with torch.no_grad():
+        assert norms.layer_norm(x, w, b).grad_fn is None
+        assert norms.group_norm(x, 32, w, b).grad_fn is None

@@ -88,6 +88,30 @@ def test_full_width_names_and_shapes_match_export():
     assert got == want == port
 
 
+def test_convert_writes_the_layer_feature_norm():
+    """A "layer" feature-extractor norm (wav2vec2-large's) has a LayerNorm
+    on every conv layer; the JAX package's exporter skips it, the port's
+    conversion writes ``conv_layers.{i}.layer_norm.{weight,bias}`` for each
+    layer, equal to the JAX params (the port's forward for it is not
+    ported: its FeatureExtractor refuses the config)."""
+    from said_tpu.models.wav2vec2 import Wav2Vec2Encoder as JEncoder
+    from said_tpu_torch.convert import wav2vec2_state_dict
+
+    cfg = JCfg(conv_dim=(16, 16, 16), conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2), hidden_size=32,
+               num_hidden_layers=1, num_attention_heads=2, intermediate_size=64, num_conv_pos_embeddings=16,
+               num_conv_pos_embedding_groups=4, output_hidden_size=32, feat_extract_norm="layer")
+    shapes = jax.eval_shape(lambda: JEncoder(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 3200)), 12))["params"]
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    sd = wav2vec2_state_dict(params)
+    for i in range(3):
+        norm = params["feature_extractor"][f"conv_{i}"]["norm"]
+        ln = f"audio_encoder.feature_extractor.conv_layers.{i}.layer_norm"
+        assert np.array_equal(sd[f"{ln}.weight"], norm["scale"]) and np.array_equal(sd[f"{ln}.bias"], norm["bias"])
+    with pytest.raises(NotImplementedError):
+        SAID(audio_config=Wav2Vec2Config(feat_extract_norm="layer"))
+
+
 def test_random_init_rule():
     pm = random_init_(SAID(audio_config=Wav2Vec2Config.tiny()), seed=3)
     sd = pm.state_dict()
@@ -191,14 +215,22 @@ def tiny_bf16(tiny):
 
 
 def test_dense_caches_its_cast_weight(tiny_bf16):
+    """Where no gradient is recorded (sampling runs under no_grad) the cast
+    weight is cached until the parameter changes; where one is, it is
+    derived anew with autograd, so the gradient reaches the parameter."""
     _, pb = tiny_bf16
     dense = pb.unet.middle_block[1].transformer_blocks[0].attn1.to_q
-    w = dense.weight_as(torch.bfloat16)
-    assert w.dtype == torch.bfloat16 and dense.weight_as(torch.bfloat16) is w
-    assert dense.weight_as(torch.float32) is dense.weight
     with torch.no_grad():
+        w = dense.weight_as(torch.bfloat16)
+        assert w.dtype == torch.bfloat16 and dense.weight_as(torch.bfloat16) is w
+        assert dense.weight_as(torch.float32) is dense.weight
         dense.weight.mul_(1.0)  # an in-place update invalidates the cache
-    assert dense.weight_as(torch.bfloat16) is not w
+        assert dense.weight_as(torch.bfloat16) is not w
+    tracked = dense.weight_as(torch.bfloat16)
+    assert tracked.grad_fn is not None
+    tracked.float().sum().backward()
+    assert dense.weight.grad is not None and (dense.weight.grad == 1).all()
+    dense.weight.grad = None
 
 
 def test_positional_conv_bf16_tracks_f32(tiny_bf16):

@@ -414,13 +414,19 @@ def test_conv_plan_tiny_width_takes_the_fma_route(dtype):
 
 def test_conv_weight_is_packed_once():
     """The conv layer keeps its weight packed for the kernel (C_out, K,
-    C_in in memory), derived once: two calls get the same tensor, and the
-    (K, C_in, C_out) view it passes equals the flax layout."""
+    C_in in memory), derived once where no gradient is recorded (the
+    frozen encoder runs under no_grad): two calls get the same tensor, and
+    the (K, C_in, C_out) view it passes equals the flax layout. Where a
+    gradient is recorded it is derived anew, with autograd."""
     from said_tpu_torch.models.wav2vec2 import _ConvLayer
 
     layer = _ConvLayer(16, 32, 3, 2, False, False, 1e-5)
-    packed = layer._w(layer.conv.weight, torch.float32)
-    assert packed is layer._w(layer.conv.weight, torch.float32)
+    with torch.no_grad():
+        packed = layer._w(layer.conv.weight, torch.float32)
+        assert packed is layer._w(layer.conv.weight, torch.float32)
+    tracked = layer._w(layer.conv.weight, torch.float32)
+    assert tracked.grad_fn is not None and tracked is not layer._w(layer.conv.weight, torch.float32)
+    assert torch.equal(tracked, packed)
     view = packed.permute(1, 2, 0)
     assert conv.is_packed(view) and not conv.is_packed(view.contiguous())
     assert torch.equal(view, layer.conv.weight.detach().permute(2, 1, 0))
