@@ -23,8 +23,9 @@ Phases (any failure exits non-zero; there is no try/except around them):
    over the f32 FMA peak; exp2 over the special-function rate; the
    largest binds).
    LayerNorm runs at the UNet's 10-s, 60-s and 6-min shapes, the
-   encoder's at 10 s, 50 s and 5 min (feature projection and layers), and
-   ragged; each case prints its plan (lanes a row × 16-byte vectors a
+   encoder's at 10 s, 50 s and 5 min (feature projection and layers), a
+   "layer" feature extractor's conv_0 of a 10-s clip (with ``F.layer_norm``
+   in bf16 too), and ragged; each case prints its plan (lanes a row × 16-byte vectors a
    lane, rows a block, blocks). The strided conv runs at the six 10-s
    shapes of conv_1 … conv_6, the 60-s conv_1 and two ragged ones, each
    with its route, beside the unfused ``F.gelu(F.conv1d(...))`` (cuDNN,
@@ -140,6 +141,40 @@ Phases (any failure exits non-zero; there is no try/except around them):
     (host, synchronised) in f32 and bf16 and the launches a step, also as
     a ``{"training": ...}`` JSON line.
 
+16. Streaming through the CLI: phase 8's 6-min WAV with
+    ``--streaming_window 3600 --streaming_overlap 360 --solver dpmpp_2m
+    --num_steps 25``, f32: 7 windows (starts 0, 3240, …, 16200, 18000),
+    21600 finite rows in [0, 1], launch counts exactly 7 × phase 8's (each
+    window is one 3600-frame pipeline call; the editing path launches
+    nothing more); its wall time beside phase 8's and beside the whole
+    clip requested again right after it (warm); then the pipeline alone,
+    whole clip and streaming in turns: host ms, and the card's busy ms,
+    idle share and time by kernel family under ``torch.profiler``.
+17. Streaming, card against CPU: a 20-s clip in 600-frame windows with a
+    120-frame overlap (windows at 0, 480, 600), 10 DDIM steps, CFG 2.0,
+    injected per-window noise: coefficient MAE ≤ 1e-4 and max ≤ 1e-3 with
+    a denoiser output std > 1e-3; on the card each later window's raw
+    result equals its init on the pinned rows bit for bit.
+18. A "layer" feature extractor (``feat_extract_norm="layer"``,
+    ``conv_bias``, base widths, 2 layers), card against CPU on a 4-s
+    clip: the embedding within 1e-4 of max |CPU|; exactly 13 LayerNorm
+    launches and no other kernel's. (Phase 2 holds K7 at its conv_0 shape,
+    (1, 31999, 512), f32 and bf16, beside ``F.layer_norm``.)
+19. One BCVAE train step, card against CPU: batch 32 of 120×32 windows,
+    injected ε, f32 with TF32 off: the loss within 1e-5 relative, each
+    gradient within 1e-4 relative L2 (the BatchNorm-cancelled biases',
+    exactly 0, at most 1e-6 of the global norm), the running statistics
+    within 1e-5.
+20. ``train_vae`` on a synthetic coefficient tree (2 train persons × 8
+    sentences, 1 val person; 3 epochs, validation every epoch, a
+    checkpoint at 3): finite metrics lines and the checkpoint; its EMA
+    weights as a ``.pth`` through ``inference_vae`` (a (120, 32) CSV in
+    [0, 1]) and ``test_evaluate`` on a synthetic split (2 test persons × 4
+    sentences × 4 repeats of 300 frames, generated = real + noise): FD,
+    multimodality and WInD finite and ≥ 0, the real set's FD against
+    itself ≤ 1e-6 · trace(Σ); each CLI's wall time, and the encoding and
+    one mixture fit apart, also as an ``{"evaluation": ...}`` JSON line.
+
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
@@ -178,7 +213,7 @@ from said_tpu_torch.cli._common import (  # noqa: E402
     random_init_,
 )
 from said_tpu_torch.data.blendvoca import PERSON_IDS_TEST  # noqa: E402
-from said_tpu_torch.models.said import SAIDPipeline, process_audio  # noqa: E402
+from said_tpu_torch.models.said import SAIDPipeline, process_audio, streaming_starts  # noqa: E402
 from said_tpu_torch.ops import attention, conv, ffn, norms  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -193,6 +228,13 @@ BF16_BOUND = {"audio embedding": 5e-2, "denoiser output": 3e-2}
 # max |reference|
 LONG_BOUND = 1e-4
 SR, FPS = 16000, 60
+# conv_0's output of a 10-s clip, where a "layer" feature extractor runs K7
+LAYER_FEATURE_NORM_SHAPE = (1, 31999, 512)
+# the BCVAE train step, card against CPU (phase 19), f32 with TF32 off:
+# relative to the CPU's loss and running statistics, relative L2 per
+# gradient (the train-mode BatchNorm backward cancels: the JAX package's
+# own f32 gradients depart from float64 by up to 5e-5 on the CPU)
+VAE_BOUND = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5}
 # the card's peaks (NVIDIA's H100 SXM data sheet; the special-function
 # rate for exp2 as the FlashAttention-3 paper gives it). Products (GEMM,
 # attention, convolution) can run on the tensor cores: bf16 at its dense
@@ -308,23 +350,27 @@ def kernel_cases():
         isz = torch.finfo(dt).bits // 8
         # the UNet at 10 s, 60 s and 6 min; the encoder's feature
         # projection and layers at 10 s, 50 s and 5 min; ragged
+        # and the "layer" feature norm at conv_0 of a 10-s clip (C = 512)
         ln = [(2, 600, 192), (1, 600, 512), (1, 600, 768), (2, 37, 192), (2, 3600, 192), (2, 21600, 192),
-              (1, 2999, 768), (1, 17999, 768)]
+              (1, 2999, 768), (1, 17999, 768), LAYER_FEATURE_NORM_SHAPE]
         for i, shape in enumerate(ln):
             c, n = shape[-1], int(np.prod(shape))
             plan = norms.layer_norm_plan(n // c, c, dt)
             x, w, b = randn(shape, 1, dt, 2.0, 0.5), randn((c,), 2), randn((c,), 3)
             fns = {"kernel": lambda x=x, w=w, b=b: norms.layer_norm_kernel(x, w, b, 1e-5),
                    "plain": lambda x=x, w=w, b=b: norms.layer_norm_plain(x, w, b, 1e-5)}
-            if dt == torch.float32:
-                fns["library"] = lambda x=x, w=w, b=b, c=c: torch.nn.functional.layer_norm(x, (c,), w, b, 1e-5)
+            if dt == torch.float32 or shape == LAYER_FEATURE_NORM_SHAPE:
+                # (F.layer_norm on the card takes weights in x's dtype)
+                fns["library"] = lambda x=x, w=w.to(dt), b=b.to(dt), c=c: torch.nn.functional.layer_norm(
+                    x, (c,), w, b, 1e-5)
             if shape[1] >= 600:  # the main path's shapes: other plans, forced
                 for lanes, per_block in ln_plans(n // c, c, dt):
                     fns[f"plan {lanes}x{per_block}"] = (lambda x=x, w=w, b=b, p=(lanes, per_block):
                                                       norms.layer_norm_kernel(x, w, b, 1e-5, _plan=p))
             label = f"{tag} {shape} [{plan.route} {plan.lanes}x{plan.chunks}, {plan.rows} rows x {plan.blocks} blocks]"
-            cases.append(("layer_norm", label, dt, fns,
-                          {"bytes": 2 * n * isz + 8 * c, "flop": 8 * n}, headline_tag(i == 0, tag)))
+            headline = headline_tag(i == 0, tag) or ("layer feature norm " + tag
+                                                     if shape == LAYER_FEATURE_NORM_SHAPE else None)
+            cases.append(("layer_norm", label, dt, fns, {"bytes": 2 * n * isz + 8 * c, "flop": 8 * n}, headline))
         # the UNet at 10, 30, 60 s, a 4096-frame bucket and 6 min, the
         # encoder's conv_0 at a 4-s clip and a 32k-sample bucket; where the
         # last flag is set, every one-launch plan and the split are forced
@@ -538,7 +584,7 @@ def phase_kernels(record):
                 entry.update(unfused_ms=ms["unfused"]["enqueue"], unfused_device_ms=dev["unfused"])
             if headline == "f32":
                 record[name].update(entry)
-            else:
+            else:  # "bf16" or another labelled record beside the headline
                 record[name][headline] = entry
 
 
@@ -626,9 +672,10 @@ def phase_request(record, gpu_line):
 
 
 def phase_long_requests(record, gpu_line):
+    """Phases 7 and 8; returns the 6-min request's wall time."""
     cli_request(record, gpu_line, 7, 60.0, 1000, [], expected_launches(1000), seed=2)
     record["flash_attention"]["launches"] = record["flash_attention"]["launches_by_request"]["60s 1000 steps"]
-    cli_request(record, gpu_line, 8, 360.0, 25, ["--solver", "dpmpp_2m"], expected_launches(25), seed=3)
+    return cli_request(record, gpu_line, 8, 360.0, 25, ["--solver", "dpmpp_2m"], expected_launches(25), seed=3)
 
 
 def phase_long_card_vs_cpu():
@@ -1233,6 +1280,294 @@ def phase_train_cli(gpu_line):
                                     "bf16_train_step_ms": step_ms["bfloat16"], "launches_per_step": per_step}}))
 
 
+# ------------------------------------------------------------ streaming
+
+
+def phase_streaming_cli(record, gpu_line, whole_clip_wall):
+    """The 6-min clip of phase 8 (same WAV) as 60-s windows with a 6-s
+    pinned overlap: 7 windows, each one pipeline call of 3600 frames (the
+    flash path) with its own prepare, so the counts are 7 × one call's;
+    the editing path adds no launch (its mask and re-noising are
+    elementwise)."""
+    starts = streaming_starts(21600, 3600, 360)
+    check(starts == [0, 3240, 6480, 9720, 12960, 16200, 18000], f"window starts {starts}")
+    expected = expected_launches(25, calls=len(starts))
+    wall = cli_request(record, gpu_line, 16, 360.0, 25, ["--solver", "dpmpp_2m", "--streaming_window", "3600",
+                                                         "--streaming_overlap", "360"], expected, seed=3)
+    # phase 8 was the process's first 6-min request (the allocator grew to
+    # its sizes there): the whole clip again, warm, for a like comparison
+    warm = cli_request(record, gpu_line, "16b", 360.0, 25, ["--solver", "dpmpp_2m"], expected_launches(25), seed=3)
+    print(f"6-min request: streaming ({len(starts)} windows at {starts}) {wall:.2f} s against the whole clip "
+          f"{warm:.2f} s warm (phase 8, the first: {whole_clip_wall:.2f} s) on {gpu_line}")
+    # the pipeline alone (no model build, audio or CSV), warm, in turns
+    # (whole, streaming, streaming, whole): host ms, then one profiled run
+    # each for the card's busy time (profile_step's timer and profiler)
+    from said_tpu_torch import profile_step
+
+    configure_precision("float32")
+    pipe = SAIDPipeline(random_init_(build_said_model(), seed=0).to(DEV).eval())
+    wave = process_audio(0.1 * np.random.default_rng(12).standard_normal(360 * SR).astype(np.float32))
+    kw = dict(num_inference_steps=25, guidance_scale=2.0, solver="dpmpp_2m",
+              generator=torch.Generator(device=DEV).manual_seed(0))
+    runs = {"whole clip": lambda: pipe.inference(wave, **kw),
+            "streaming": lambda: pipe.inference_streaming(wave, window_frames=3600, overlap_frames=360, **kw)}
+    for fn in runs.values():  # warm-up
+        fn()
+    host = {name: [] for name in runs}
+    for name in ("whole clip", "streaming", "streaming", "whole clip"):
+        host[name].append(profile_step.host_ms(runs[name]))
+    pipeline = {}
+    for name, fn in runs.items():
+        prof = profile_step.device_profile(fn)
+        ms = float(np.median(host[name]))
+        busy = prof["device_busy_ms"]
+        pipeline[name] = {"host_ms": ms, "host_ms_runs": host[name], "device_busy_ms": busy,
+                          "idle_share": None if busy is None else 1.0 - busy / ms, "launches": prof["launches"],
+                          "by_family_ms": prof["by_family_ms"]}
+        top = "" if busy is None else ", ".join(f"{k} {v:.1f}" for k, v in list(prof["by_family_ms"].items())[:4])
+        print(f"pipeline {name}: host {ms:.1f} ms [{' '.join(f'{t:.1f}' for t in host[name])}], device busy "
+              f"{'not measured' if busy is None else f'{busy:.1f} ms, idle share {1.0 - busy / ms:.2f}'}; {top}")
+    print(json.dumps({"streaming": {"device": gpu_line, "windows": len(starts), "streaming_wall_s": wall,
+                                    "whole_clip_wall_s": warm, "whole_clip_first_wall_s": whole_clip_wall,
+                                    "pipeline": pipeline}}))
+
+
+def phase_streaming_card_vs_cpu():
+    print("\n== phase 17: streaming, card against CPU: 20-s clip (1200 frames), 600-frame windows, overlap 120 "
+          "(windows at 0, 480, 600), 10 DDIM steps, CFG 2.0, injected per-window noise ==")
+    configure_precision("float32")
+    cpu_model = random_init_(build_said_model(), seed=0).eval()
+    card = SAIDPipeline(copy.deepcopy(cpu_model).to(DEV))
+    rng = np.random.default_rng(8)
+    wave = process_audio(0.1 * rng.standard_normal(20 * SR).astype(np.float32))
+    starts = streaming_starts(1200, 600, 120)
+    check(starts == [0, 480, 600], f"window starts {starts}")
+    noise = [{("latents" if k == 0 else "edit_noise"): rng.standard_normal((1, 600, 32)).astype(np.float32)}
+             for k in range(len(starts))]
+    kw = dict(window_frames=600, overlap_frames=120, num_inference_steps=10, guidance_scale=2.0, window_noise=noise)
+    calls, inference = [], card.inference
+
+    def spy(wave_k, **kwargs):
+        res = inference(wave_k, **kwargs)
+        calls.append((kwargs.get("init_samples"), kwargs.get("mask"), res.result))
+        return res
+
+    card.inference = spy
+    t0 = time.perf_counter()
+    res_card = card.inference_streaming(wave, **kw).result
+    t_card = time.perf_counter() - t0
+    card.inference = inference
+    t0 = time.perf_counter()
+    res_cpu = SAIDPipeline(cpu_model).inference_streaming(wave, **kw).result
+    t_cpu = time.perf_counter() - t0
+    with torch.no_grad():
+        wave_t = torch.from_numpy(wave[:, : 600 * SR // FPS]).to(DEV)
+        kv, table = card.prepare(wave_t, 600, True)
+        eps = card.model.unet(torch.from_numpy(noise[0]["latents"]).to(DEV), kv_caches=kv, emb=table[999],
+                              cfg_fold=True)
+    eps_std = eps.std().item()
+    diff = np.abs(res_card - res_cpu)
+    print(f"stitched {res_card.shape}: coefficient MAE {diff.mean():.3e} (bound 1e-4) max {diff.max():.3e} "
+          f"(bound 1e-3), denoiser output std {eps_std:.4f} (must be > 1e-3); card {t_card:.1f} s, cpu {t_cpu:.1f} s")
+    check(res_card.shape == res_cpu.shape == (1, 1200, 32), f"shapes {res_card.shape} / {res_cpu.shape}")
+    check(np.isfinite(res_card).all() and res_card.min() >= 0.0 and res_card.max() <= 1.0, "not finite in [0, 1]")
+    check(eps_std > 1e-3, "denoiser output is degenerate; the comparison would be vacuous")
+    check(diff.mean() <= 1e-4 and diff.max() <= 1e-3, f"card vs CPU MAE {diff.mean():.3e} / max {diff.max():.3e}")
+    check(len(calls) == 3 and calls[0][0] is None, f"{len(calls)} window calls")
+    for k, (init, mask, res) in enumerate(calls[1:], start=1):
+        kept = int(mask[0, :, 0].sum())
+        check(np.array_equal(res[:, :kept], init[:, :kept]), f"window {k}: the pinned rows moved")
+        print(f"window {k}: {kept} pinned rows equal their init bit for bit on the card")
+
+
+def phase_layer_feature_norm():
+    print('\n== phase 18: a "layer" feature extractor (conv bias, LayerNorm after every conv; base widths, '
+          "2 transformer layers), card against CPU, 4-s clip ==")
+    from said_tpu_torch.models.said import SAID
+    from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    configure_precision("float32")
+    cpu_model = random_init_(SAID(audio_config=Wav2Vec2Config(feat_extract_norm="layer", conv_bias=True,
+                                                              num_hidden_layers=2)), seed=0).eval()
+    rng = np.random.default_rng(9)
+    with torch.no_grad():  # random_init_ leaves biases 0 and norm scales 1: draw them
+        for layer in cpu_model.audio_encoder.feature_extractor.conv_layers:
+            for p in (layer.conv.bias, layer.layer_norm.weight, layer.layer_norm.bias):
+                p.copy_(torch.from_numpy((rng.standard_normal(p.shape) * 0.3).astype(np.float32)) + (p == 1).float())
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    wave = process_audio(0.1 * rng.standard_normal(4 * SR).astype(np.float32))
+    zero_launches()
+    with torch.no_grad():
+        got = card_model.get_audio_embedding(torch.from_numpy(wave).to(DEV), 240).cpu()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = cpu_model.get_audio_embedding(torch.from_numpy(wave), 240)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    # 7 conv layers' LayerNorms, the feature projection's, the encoder's and 2 a layer
+    expected = {name: 0 for name in KERNELS} | {"layer_norm": 7 + 2 + 2 * 2}
+    print(f"embedding {tuple(got.shape)}: max |card - CPU| {rel:.3e} of max |CPU| (bound {LONG_BOUND:.0e}), "
+          f"std {want.std().item():.4f}; launches {launches}")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    check(want.std().item() > 1e-3 and np.isfinite(rel) and rel <= LONG_BOUND, f"layer encoder card vs CPU {rel:.3e}")
+
+
+# ------------------------------------------------------------ the BCVAE stack
+
+
+def phase_vae_train_step():
+    print("\n== phase 19: one BCVAE train step (ELBO, train-mode BatchNorm), card against CPU: batch 32 of 120x32 "
+          "windows, injected eps, f32, TF32 off ==")
+    from said_tpu_torch.cli._common import load_vae
+    from said_tpu_torch.models.vae import BATCHNORM_CANCELLED_BIASES
+    from said_tpu_torch.train import vae_train
+
+    configure_precision("float32")
+    rng = np.random.default_rng(11)
+    coeffs = rng.uniform(0, 1, (32, 120, 32)).astype(np.float32)
+    eps = rng.standard_normal((32, 64)).astype(np.float32)
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        model = load_vae("", seed=0, device=dev)
+        state = vae_train.VAETrainState(model, vae_train.VAETrainConfig())
+        t0 = time.perf_counter()
+        loss, _ = vae_train.elbo_loss(model, torch.from_numpy(coeffs).to(dev), None, state.config, 0.5,
+                                      train=True, eps=torch.from_numpy(eps).to(dev))
+        grads = torch.autograd.grad(loss, list(state.params.values()))
+        state.optimizer.update(grads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"loss": loss.item(), "grads": {n: g.cpu() for n, g in zip(state.params, grads)},
+                     "stats": {n: b.cpu() for n, b in model.named_buffers() if n.endswith(("mean", "var"))}, "ms": ms}
+    cpu, card = out["cpu"], out["card"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in cpu["grads"].values())).item()
+    grad_rel, zero_abs = {}, 0.0
+    for n, want in cpu["grads"].items():
+        if n in BATCHNORM_CANCELLED_BIASES:  # exactly 0: rounding noise on both sides
+            zero_abs = max(zero_abs, card["grads"][n].abs().max().item() / norm, want.abs().max().item() / norm)
+        else:
+            grad_rel[n] = rel_l2(card["grads"][n], want)
+    stats_rel = max(((card["stats"][n] - w).abs().max() / w.abs().max()).item() for n, w in cpu["stats"].items())
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"loss {cpu['loss']:.6f}: card vs CPU {loss_rel:.3e} (bound {VAE_BOUND['loss']:.0e}); gradients: max "
+          f"{grad_rel[worst]:.3e} relative L2 ({worst}; bound {VAE_BOUND['grad']:.0e}), median "
+          f"{np.median(list(grad_rel.values())):.3e}; the BatchNorm-cancelled biases' at most {zero_abs:.1e} of the "
+          f"global norm; running statistics {stats_rel:.3e} (bound {VAE_BOUND['stats']:.0e}); step (forward, "
+          f"backward, update; first call) card {card['ms']:.1f} ms, cpu {cpu['ms']:.1f} ms")
+    check(np.isfinite(loss_rel) and loss_rel <= VAE_BOUND["loss"], f"VAE loss card vs CPU {loss_rel:.3e}")
+    check(all(np.isfinite(v) and v <= VAE_BOUND["grad"] for v in grad_rel.values()), f"VAE gradient {worst} "
+          f"card vs CPU {grad_rel[worst]:.3e}")
+    check(zero_abs <= 1e-6, f"a BatchNorm-cancelled bias has a gradient of {zero_abs:.1e} of the global norm")
+    check(np.isfinite(stats_rel) and stats_rel <= VAE_BOUND["stats"], f"VAE running stats card vs CPU {stats_rel:.3e}")
+
+
+def write_coeff_tree(root, persons, sentences, frames, repeats=0, noise_of=None, seed=21):
+    """CSVs ``<root>/<person>/sentenceXX.csv`` (or ``sentenceXX-k.csv``
+    for k < ``repeats``): smooth random coefficients, or, with
+    ``noise_of``, that tree's CSVs plus noise."""
+    from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES
+    from said_tpu_torch.utils.blendshape import load_blendshape_coeffs, save_blendshape_coeffs
+
+    rng = np.random.default_rng(seed)
+    for pid in persons:
+        os.makedirs(os.path.join(root, pid), exist_ok=True)
+        for sid in range(1, sentences + 1):
+            name = f"sentence{sid:02}"
+            if noise_of is None:
+                base = np.clip(0.5 + np.cumsum(rng.standard_normal((frames, 32)), axis=0) * 0.02, 0, 1)
+            else:
+                base = load_blendshape_coeffs(os.path.join(noise_of, pid, name + ".csv"))
+            for suffix in ([f"-{k}" for k in range(repeats)] if repeats else [""]):
+                coeffs = base if noise_of is None else np.clip(base + rng.standard_normal(base.shape) * 0.05, 0, 1)
+                save_blendshape_coeffs(coeffs.astype(np.float32), BLENDSHAPE_CLASSES,
+                                       os.path.join(root, pid, name + suffix + ".csv"))
+
+
+def phase_vae_clis(gpu_line):
+    print("\n== phase 20: train_vae (2 train persons x 8 sentences, 1 val person; 3 epochs) -> inference_vae -> "
+          "test_evaluate (2 test persons x 4 sentences x 4 repeats of 300 frames, generated = real + noise) ==")
+    from said_tpu_torch.cli import inference_vae, test_evaluate, train_vae
+    from said_tpu_torch.cli._common import load_vae
+    from said_tpu_torch.core.checkpoint import STATE_FILE, save_pth
+    from said_tpu_torch.data.blendvoca import PERSON_IDS_TRAIN, PERSON_IDS_VAL, BlendVOCAEvalDataset
+    from said_tpu_torch.eval import metrics
+
+    root = os.path.join(WORK, "vae")
+    shutil.rmtree(root, ignore_errors=True)  # train_vae appends to metrics.jsonl
+    coeffs_dir, out_dir = os.path.join(root, "coeffs"), os.path.join(root, "out")
+    write_coeff_tree(coeffs_dir, PERSON_IDS_TRAIN[:2], 8, 300)
+    write_coeff_tree(coeffs_dir, PERSON_IDS_VAL[:1], 2, 300, seed=22)
+    walls = {}
+    t0 = time.perf_counter()
+    train_vae.main(["--device", DEV.type, "--coeffs_dir", coeffs_dir, "--output_dir", out_dir, "--epochs", "3",
+                    "--val_period", "1", "--val_repeat", "1", "--save_period", "3"])
+    torch.cuda.synchronize()
+    walls["train_vae"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "SAiD-VAE", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    print("metrics:", [{k: round(v, 4) for k, v in line.items() if k in ("step", "Train/loss", "Validation/loss")}
+                       for line in lines])
+    check([line["step"] for line in lines] == [1, 2, 3] and all("Validation/loss" in line for line in lines)
+          and all(np.isfinite(v) for line in lines for v in line.values()), "train_vae metrics lines")
+    ckpt = os.path.join(out_dir, "ckpt", "3", STATE_FILE)
+    check(os.path.isfile(ckpt), "train_vae wrote no checkpoint at epoch 3")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    vae_pth = os.path.join(root, "vae.pth")
+    save_pth(saved["model"] | saved["ema"], vae_pth)  # the EMA weights with the running statistics
+
+    t0 = time.perf_counter()
+    recon = inference_vae.main(["--device", DEV.type, "--weights_path", vae_pth, "--blendshape_coeffs_path",
+                                os.path.join(coeffs_dir, PERSON_IDS_TRAIN[0], "sentence01.csv"),
+                                "--output_path", os.path.join(root, "recon.csv")])
+    walls["inference_vae"] = time.perf_counter() - t0
+    header, csv_coeffs = read_csv(os.path.join(root, "recon.csv"))
+    check(tuple(header) == ARKIT_BLENDSHAPES and csv_coeffs.shape == (120, 32) and np.isfinite(csv_coeffs).all()
+          and csv_coeffs.min() >= 0.0 and csv_coeffs.max() <= 1.0 and recon.shape == (120, 32),
+          f"inference_vae CSV {csv_coeffs.shape}")
+
+    split = os.path.join(root, "split")
+    for pid in PERSON_IDS_TEST:
+        os.makedirs(os.path.join(split, "audio", pid), exist_ok=True)
+        for sid in range(1, 5):
+            write_wav(os.path.join(split, "audio", pid, f"sentence{sid:02}.wav"), 5.0, seed=40 + sid)
+    real_dir, gen_dir = os.path.join(split, "real"), os.path.join(split, "gen")
+    write_coeff_tree(real_dir, PERSON_IDS_TEST, 4, 300, seed=23)
+    write_coeff_tree(gen_dir, PERSON_IDS_TEST, 4, 300, repeats=4, noise_of=real_dir, seed=24)
+    t0 = time.perf_counter()
+    result = test_evaluate.main(["--device", DEV.type, "--audio_dir", os.path.join(split, "audio"), "--coeffs_dir",
+                                 gen_dir, "--coeffs_real_dir", real_dir, "--vae_weights_path", vae_pth])
+    torch.cuda.synchronize()
+    walls["test_evaluate"] = time.perf_counter() - t0
+    fd, mm, wind = result["frechet_distance"], result["multimodality"], result["wind"]
+    check(all(np.isfinite(v) and v >= 0 for v in (fd, mm, wind["mean"], wind["std"])), f"test_evaluate {result}")
+
+    # its parts apart: encoding the generated set's windows, one mixture fit
+    model = load_vae(vae_pth, device=DEV)
+    gen = BlendVOCAEvalDataset(os.path.join(split, "audio"), gen_dir)
+    real = BlendVOCAEvalDataset(os.path.join(split, "audio"), real_dir)
+    t0 = time.perf_counter()
+    gen_infos = test_evaluate.generate_latents_info(model, gen, 1)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    latents = [i.latent for i in gen_infos]
+    t0 = time.perf_counter()
+    metrics.get_statistic_gmm(latents, 5, torch.Generator(device=DEV).manual_seed(0), DEV)
+    gmm_s = time.perf_counter() - t0
+    rs = metrics.get_statistic([i.latent for i in test_evaluate.generate_latents_info(model, real, 1, padding=2)])
+    self_fd = metrics.frechet_distance(rs.mean, rs.cov, rs.mean, rs.cov)
+    trace = float(np.trace(rs.cov))
+    print(f"test_evaluate: {result}")
+    print(f"FD of the real set against itself {self_fd:.3e} (bound 1e-6 x trace {trace:.3e})")
+    check(abs(self_fd) <= 1e-6 * trace, f"FD of the real set against itself {self_fd:.3e}")
+    print(f"wall: train_vae (3 epochs) {walls['train_vae']:.2f} s, inference_vae {walls['inference_vae']:.2f} s, "
+          f"test_evaluate {walls['test_evaluate']:.2f} s (10 x 2 mixture fits); encoding {len(latents)} generated "
+          f"windows {encode_s:.3f} s, one 5-component fit to them {gmm_s:.3f} s; on {gpu_line}")
+    print(json.dumps({"evaluation": {"device": gpu_line, **{f"{k}_wall_s": v for k, v in walls.items()},
+                                     "encode_s": encode_s, "encoded_windows": len(latents), "gmm_fit_s": gmm_s,
+                                     "metrics": result}}))
+
+
 def main():
     os.makedirs(WORK, exist_ok=True)
     print("== phase 1: environment and build ==")
@@ -1270,7 +1605,7 @@ def main():
     phase_bf16_vs_f32(model, wave, latents)
     del model
     phase_bf16()
-    phase_long_requests(record, gpu_line)
+    whole_clip_wall = phase_long_requests(record, gpu_line)
     phase_long_card_vs_cpu()
     phase_eval_cli(record, gpu_line)
     phase_mixed_lengths()
@@ -1280,6 +1615,11 @@ def main():
     phase_blockwise_backward(card_model)
     del card_model
     phase_train_cli(gpu_line)
+    phase_streaming_cli(record, gpu_line, whole_clip_wall)
+    phase_streaming_card_vs_cpu()
+    phase_layer_feature_norm()
+    phase_vae_train_step()
+    phase_vae_clis(gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)

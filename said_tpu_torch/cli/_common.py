@@ -1,6 +1,7 @@
-"""Shared CLI plumbing: model construction, weights, precision; the CSV
-I/O of ``said_tpu_torch.utils.blendshape`` (a header of the 32 ARKit
-blendshape names, then one row per 60 fps frame; no pandas).
+"""Shared CLI plumbing: model construction, weights (SAiD's and the
+BCVAE's), precision; the CSV I/O of ``said_tpu_torch.utils.blendshape`` (a
+header of the 32 ARKit blendshape names, then one row per 60 fps frame;
+no pandas).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES
 from said_tpu_torch.models.layers import GroupNorm32, LayerNormF32
 from said_tpu_torch.models.said import SAID
+from said_tpu_torch.models.vae import BCVAE
 from said_tpu_torch.utils.blendshape import (  # noqa: F401 (the CLIs' CSV I/O)
     load_blendshape_coeffs,
     save_blendshape_coeffs,
@@ -105,3 +107,19 @@ def load_said_weights(model: SAID, weights_path: Optional[str], seed: int = 0) -
         renamed[k.replace("parametrizations.weight.original1", "weight_v")] = v
     model.load_state_dict(renamed, strict=True)
     return model
+
+
+def load_vae(weights_path: Optional[str], seed: int = 0, device: torch.device = torch.device("cuda")) -> BCVAE:
+    """The BCVAE on ``device`` in eval mode: a reference ``vae.pth`` (or a
+    ``train_vae`` export) loaded with ``strict=True``, or, with an empty
+    path, PyTorch's default init drawn from ``seed``. A path that names no
+    file raises ``FileNotFoundError``."""
+    if not weights_path:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return BCVAE().to(device).eval()
+    if not os.path.isfile(weights_path):
+        raise FileNotFoundError(f"VAE weights file not found: {weights_path!r} (pass an empty path for random weights)")
+    model = BCVAE()
+    model.load_state_dict(torch.load(weights_path, map_location="cpu", weights_only=True), strict=True)
+    return model.to(device).eval()

@@ -5,9 +5,11 @@ Flag-compatible with ``said_tpu/cli/inference.py`` (the reference's
 60 fps; ``--init_sample_path``/``--mask_path`` masked editing and
 intermediate dumps; ``--solver dpmpp_2m`` for DPM-Solver++(2M), e.g.
 with ``--num_steps 25``; ``--length_bucket N`` pads the window to a
-multiple of N frames and runs length-bucketed mode). Clips of any length
-run: self-attention over more than 2048 frames goes to the flash-attention
-kernel on the card.
+multiple of N frames and runs length-bucketed mode; ``--streaming_window
+N`` serves the clip as N-frame windows stitched through the editing path,
+each pinning ``--streaming_overlap`` frames of the one before). Clips of
+any length run: self-attention over more than 2048 frames goes to the
+flash-attention kernel on the card.
 ``--device`` defaults to ``cuda``. Unlike the JAX CLI's, whose path
 defaults point into ``../BlendVOCA``, every path default here lies in
 the working directory: ``--audio_path`` is required, and without
@@ -76,13 +78,28 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--seq_shards", type=int, default=0)
     parser.add_argument("--length_bucket", type=int, default=0,
                         help="pad the window to a multiple of this many frames (0: exact shape)")
-    parser.add_argument("--streaming_window", type=int, default=0)
-    parser.add_argument("--streaming_overlap", type=int, default=360)
+    parser.add_argument("--streaming_window", type=int, default=0,
+                        help="serve the clip as overlapping windows of this many frames stitched through the "
+                             "inpainting path (0: off; a multiple of 3)")
+    parser.add_argument("--streaming_overlap", type=int, default=360,
+                        help="frames of each window pinned from the one before, with --streaming_window")
+
+
+def _refuse_with_streaming(args: argparse.Namespace) -> None:
+    """The JAX CLI's refusals in streaming mode (said_tpu/cli/inference.py:167-178)."""
+    if args.streaming_window <= 0:
+        return
+    for flag, bad in (("--init_sample_path", args.init_sample_path), ("--mask_path", args.mask_path),
+                      ("--save_intermediate", args.save_intermediate), ("--length_bucket", args.length_bucket),
+                      ("--seq_shards", args.seq_shards > 1)):
+        if bad:
+            raise SystemExit(f"{flag} is not supported with --streaming_window")
+    if args.strength != 1.0:
+        raise SystemExit("--strength is not supported with --streaming_window")
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
-        (args.streaming_window > 0, "--streaming_window > 0", "ROADMAP Queue 1 item 9 (streaming)"),
         (args.seq_shards > 1, "--seq_shards > 1", "ROADMAP Queue 1 item 13 (multi-GPU)"),
         (args.attn_impl == "flash_sp", "--attn_impl flash_sp",
          "ROADMAP Queue 1 item 13 (multi-GPU, sequence-parallel attention)"),
@@ -97,6 +114,7 @@ def main(argv=None) -> np.ndarray:
     parser = argparse.ArgumentParser(description="Inference the lipsync using the SAiD model (PyTorch/CUDA)")
     add_arguments(parser)
     args = parser.parse_args(argv)
+    _refuse_with_streaming(args)
     _refuse_unported(args)
     if not args.audio_path:
         parser.error("--audio_path is required")
@@ -119,21 +137,23 @@ def main(argv=None) -> np.ndarray:
     if args.mask_path:
         mask = load_blendshape_coeffs(args.mask_path)[None]
 
-    output = pipeline.inference(
-        waveform_processed,
-        init_samples=init_samples,
-        mask=mask,
-        num_inference_steps=args.num_steps,
-        strength=args.strength,
-        guidance_scale=args.guidance_scale,
-        guidance_rescale=args.guidance_rescale,
-        eta=args.eta,
-        solver=args.solver,
-        fps=args.fps,
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-        save_intermediate=args.save_intermediate,
-        length_bucket=args.length_bucket,
-    )
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    sampling = dict(num_inference_steps=args.num_steps, guidance_scale=args.guidance_scale,
+                    guidance_rescale=args.guidance_rescale, eta=args.eta, solver=args.solver, fps=args.fps,
+                    generator=generator)
+    if args.streaming_window > 0:
+        output = pipeline.inference_streaming(waveform_processed, window_frames=args.streaming_window,
+                                              overlap_frames=args.streaming_overlap, **sampling)
+    else:
+        output = pipeline.inference(
+            waveform_processed,
+            init_samples=init_samples,
+            mask=mask,
+            strength=args.strength,
+            save_intermediate=args.save_intermediate,
+            length_bucket=args.length_bucket,
+            **sampling,
+        )
 
     result = output.result[0, :window_len]
     save_blendshape_coeffs(result, ARKIT_BLENDSHAPES, args.output_path)

@@ -16,6 +16,11 @@ Layouts: flax Dense ``kernel`` (in, out) → ``weight`` (out, in); flax
 Conv ``kernel`` (k, in, out) → ``weight`` (out, in, k); norm ``scale`` →
 ``weight``. The positional conv is written as its weight-norm pair
 (g = per-position norm over dims 0, 1; v = the weight).
+
+``bcvae_state_dict`` is the inverse of the JAX package's
+``said_tpu.utils.torch_import.convert_bcvae``: the BCVAE's flax trees
+(params and BatchNorm ``batch_stats``) → the reference ``vae.pth`` names,
+which ``said_tpu_torch.models.vae.BCVAE`` loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -145,4 +150,46 @@ def said_state_dict(params: Mapping) -> StateDict:
     out["null_cond_emb"] = np.asarray(params["null_cond_emb"])
     if "audio_proj_layer" in params:
         _dense(params["audio_proj_layer"], "audio_proj_layer", out)
+    return out
+
+
+# (flax name, torch name) of the BCVAE's layers; BatchNorms carry their
+# running statistics in ``batch_stats`` under the same flax name
+_BCVAE_LAYERS = {
+    "encoder": [("conv0", "conv_layers.0"), ("bn0", "conv_layers.1"), ("conv1", "conv_layers.3"),
+                ("bn1", "conv_layers.4"), ("conv2", "conv_layers.6"), ("bn2", "conv_layers.7"),
+                ("conv3", "conv_layers.9"), ("fc0", "fc_layers.0"), ("fc_bn0", "fc_layers.1"),
+                ("fc1", "fc_layers.3"), ("fc_bn1", "fc_layers.4"), ("fc2", "fc_layers.6"), ("fc_mu", "fc_mu"),
+                ("fc_logvar", "fc_logvar")],
+    "decoder": [("fc0", "fc_layers.0"), ("fc_bn0", "fc_layers.1"), ("fc1", "fc_layers.3"),
+                ("deconv0", "conv_layers.0"), ("bn0", "conv_layers.1"), ("deconv1", "conv_layers.3"),
+                ("bn1", "conv_layers.4"), ("conv0", "conv_layers.6"), ("conv1", "conv_layers.7")],
+}
+
+
+def bcvae_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """JAX ``BCVAE`` params and ``batch_stats`` → the reference torch names.
+
+    The decoder's stride-1 transposed convs are stored in flax as
+    full-padding convs with the kernel flipped (``convert_bcvae`` flips
+    it on import); here the flip is undone and the layout made torch's
+    ConvTranspose1d (in, out, k). ``num_batches_tracked`` (which the JAX
+    package does not keep) is written as 0."""
+    out: StateDict = {}
+    for part, layers in _BCVAE_LAYERS.items():
+        for flax_name, torch_name in layers:
+            p, name = params[part][flax_name], f"{part}.{torch_name}"
+            if flax_name in batch_stats[part]:
+                stats = batch_stats[part][flax_name]
+                _norm(p, name, out)
+                out[f"{name}.running_mean"] = np.asarray(stats["mean"])
+                out[f"{name}.running_var"] = np.asarray(stats["var"])
+                out[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+            elif flax_name.startswith("deconv"):  # (k, in, out), flipped → (in, out, k)
+                out[f"{name}.weight"] = np.ascontiguousarray(np.flip(np.asarray(p["kernel"]), 0).transpose(1, 2, 0))
+                out[f"{name}.bias"] = np.asarray(p["bias"])
+            elif flax_name.startswith("conv"):
+                _conv(p, name, out)
+            else:
+                _dense(p, name, out)
     return out

@@ -13,7 +13,10 @@ lacks). Behaviour, from the reference's ``script/dataset/dataset_voca.py``:
   [window_size_min, shortest sequence], edge padding, a random start
   offset, an optional ±1-sample audio delay;
 - per item: the CFG uncondition draw, a horizontal flip that swaps the
-  mirror pairs' columns, an optional zero-out.
+  mirror pairs' columns, an optional zero-out;
+- the evaluation sets: the test split's generated or real CSVs with their
+  person and sentence (``BlendVOCAEvalDataset``), and the coefficient-only
+  120-frame windows the BCVAE trains on (``BlendVOCAVAEDataset``).
 
 All host-side numpy with one ``np.random.Generator`` a dataset, drawn in
 the JAX package's order, so the same seed gives the same batches bit for
@@ -87,6 +90,8 @@ class DataItem:
     blendshape_coeffs: Optional[np.ndarray]  # (T_b, C)
     cond: bool = True
     blendshape_delta: Optional[np.ndarray] = None  # (C, |V|, 3)
+    person_id: Optional[str] = None
+    sentence_id: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -101,7 +106,7 @@ class DataBatch:
 class BlendVOCADataPath:
     person_id: str
     sentence_id: int
-    audio: str
+    audio: Optional[str]
     blendshape_coeffs: Optional[str] = None
 
 
@@ -182,11 +187,9 @@ class _Preloaded:
             self.data_preload.append((load_audio(data.audio, sampling_rate),
                                       load_blendshape_coeffs(data.blendshape_coeffs)))
             if data.person_id not in self.deltas:
-                delta = None
-                if deltas:
-                    delta = np.stack(list(deltas[data.person_id].values()), axis=0).astype(np.float32)
-                    if landmarks:
-                        delta = delta[:, landmarks, :]
+                delta = _person_deltas(deltas, data.person_id)
+                if delta is not None and landmarks:
+                    delta = delta[:, landmarks, :]
                 self.deltas[data.person_id] = delta
 
     def __len__(self) -> int:
@@ -309,13 +312,115 @@ class BlendVOCAValDataset(_Preloaded):
     def __getitem__(self, index: int) -> DataItem:
         waveform, coeffs = self.data_preload[index]
         coeffs = np.array(coeffs)
-        wave_len = (self.sampling_rate * coeffs.shape[0]) // self.fps
-        window = np.zeros(wave_len, dtype=np.float32)
-        tmp = waveform[:wave_len]
-        window[: tmp.shape[0]] = tmp
+        window = _audio_for_coeffs(waveform, coeffs.shape[0], self.sampling_rate)
         cond = self.rng.uniform() > self.uncond_prob
         if self.rng.uniform() < self.zero_prob:
             window = np.zeros_like(window)
             coeffs = np.zeros_like(coeffs)
         return DataItem(waveform=window, blendshape_coeffs=coeffs, cond=cond,
                         blendshape_delta=self.deltas[self.data_paths[index].person_id])
+
+
+def _person_deltas(deltas, person_id: str) -> Optional[np.ndarray]:
+    """One person's (C, |V|, 3) blendshape deltas from the deltas pickle."""
+    if not deltas:
+        return None
+    return np.stack(list(deltas[person_id].values()), axis=0).astype(np.float32)
+
+
+def _audio_for_coeffs(waveform: np.ndarray, frames: int, sampling_rate: int) -> np.ndarray:
+    """The waveform cut or zero-padded to ``frames`` frames' samples."""
+    wave_len = (sampling_rate * frames) // FPS
+    window = np.zeros(wave_len, dtype=np.float32)
+    tmp = waveform[:wave_len]
+    window[: tmp.shape[0]] = tmp
+    return window
+
+
+class BlendVOCAEvalDataset:
+    """The test split's clips with their coefficient CSVs (generated ones:
+    ``sentenceXX<repeat_regex>.csv``), person and sentence, read when an
+    item is taken (the JAX CLI's ``preload=False``)."""
+
+    def __init__(
+        self,
+        audio_dir: str,
+        blendshape_coeffs_dir: str,
+        blendshape_deltas_path: Optional[str] = None,
+        sampling_rate: int = 16000,
+        repeat_regex: str = "(-.+)?",
+    ):
+        self.sampling_rate = sampling_rate
+        self.fps = FPS
+        self.data_paths = get_data_paths(audio_dir, PERSON_IDS_TEST, blendshape_coeffs_dir, repeat_regex)
+        self.blendshape_deltas = load_blendshape_deltas(blendshape_deltas_path) if blendshape_deltas_path else None
+
+    collate_fn = staticmethod(default_collate)
+
+    def __len__(self) -> int:
+        return len(self.data_paths)
+
+    def __getitem__(self, index: int) -> DataItem:
+        data = self.data_paths[index]
+        coeffs = load_blendshape_coeffs(data.blendshape_coeffs)
+        window = _audio_for_coeffs(load_audio(data.audio, self.sampling_rate), coeffs.shape[0], self.sampling_rate)
+        return DataItem(waveform=window, blendshape_coeffs=coeffs,
+                        blendshape_delta=_person_deltas(self.blendshape_deltas, data.person_id),
+                        person_id=data.person_id, sentence_id=data.sentence_id)
+
+
+class BlendVOCAVAEDataset:
+    """Coefficient-only items for BCVAE training: one ``window_size``-frame
+    window an item at a random offset (edge-padded), a horizontal flip with
+    probability ½ and an optional zero-out, drawn from one
+    ``np.random.Generator`` in the JAX package's order."""
+
+    def __init__(
+        self,
+        blendshape_coeffs_dir: str,
+        window_size: int = 120,
+        zero_prob: float = 0.0,
+        hflip: bool = True,
+        dataset_type: str = "train",
+        classes: List[str] = BLENDSHAPE_CLASSES,
+        classes_mirror_pair=BLENDSHAPE_MIRROR_PAIRS,
+        seed: int = 0,
+    ):
+        self.window_size = window_size
+        self.zero_prob = zero_prob
+        self.hflip = hflip
+        self.rng = np.random.default_rng(seed)
+        self.mirror_src, self.mirror_dst = _mirror_index_maps(classes, classes_mirror_pair)
+        person_ids = {"train": PERSON_IDS_TRAIN, "val": PERSON_IDS_VAL}.get(dataset_type, PERSON_IDS_TEST)
+        self.data_paths = []
+        for pid in person_ids:
+            coeffs_id_dir = os.path.join(blendshape_coeffs_dir, pid)
+            if not os.path.exists(coeffs_id_dir):
+                continue
+            for sid in SENTENCE_IDS:
+                pattern = re.compile(rf"^sentence{sid:02}(-.+)?\.csv$")
+                for filename in sorted(os.listdir(coeffs_id_dir)):
+                    if pattern.match(filename):
+                        self.data_paths.append(
+                            BlendVOCADataPath(pid, sid, None, os.path.join(coeffs_id_dir, filename)))
+
+    def __len__(self) -> int:
+        return len(self.data_paths)
+
+    def __getitem__(self, index: int) -> DataItem:
+        rng = self.rng
+        coeffs = load_blendshape_coeffs(self.data_paths[index].blendshape_coeffs)
+        half = self.window_size // 2
+        bdx = int(rng.integers(-half, max(0, coeffs.shape[0] - half - 1) + 1))
+        padded = np.pad(coeffs, ((half, self.window_size), (0, 0)), mode="edge")
+        window = np.array(padded[bdx + half : bdx + half + self.window_size])
+        if self.hflip and rng.uniform() < 0.5:
+            window[:, self.mirror_src] = window[:, self.mirror_dst]
+        if rng.uniform() < self.zero_prob:
+            window = np.zeros_like(window)
+        return DataItem(waveform=None, blendshape_coeffs=window)
+
+    @staticmethod
+    def collate_fn(items: List[DataItem]) -> DataBatch:
+        return DataBatch(waveform=[], blendshape_coeffs=np.stack([it.blendshape_coeffs for it in items]),
+                         cond=np.array([it.cond for it in items], dtype=bool))

@@ -1,1 +1,1 @@
-"""UNet1D denoiser, Wav2Vec2 encoder, and SAID with its pipeline."""
+"""UNet1D denoiser, Wav2Vec2 encoder, SAID with its pipeline, and the BCVAE."""

@@ -14,14 +14,16 @@ With ``length_bucket`` the clip is padded to a multiple of the bucket
 and runs in length-bucketed mode; ``waveform_lengths`` adds mixed-length
 batches (rows of different real lengths). Parameter names are the
 reference's (``denoiser.model.…``, ``audio_encoder.…``,
-``null_cond_emb``). Not ported yet: sequence-parallel mode and
-streaming; the TPU-only chunked denoise dispatch is not needed here.
+``null_cond_emb``). ``SAIDPipeline.inference_streaming`` serves a clip of
+any length as windows stitched through the editing path. Not ported yet:
+sequence-parallel mode; the TPU-only chunked denoise dispatch is not
+needed here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +151,16 @@ def _denoise_lengths(window_real, do_cfg: bool):
     if do_cfg and np.ndim(window_real) == 1:
         return np.concatenate([window_real, window_real])
     return window_real
+
+
+def streaming_starts(total_frames: int, window_frames: int, overlap_frames: int) -> List[int]:
+    """First frame of each window of :meth:`SAIDPipeline.inference_streaming`:
+    a stride of ``window − overlap``, the last window moved back to end at
+    the clip's last frame."""
+    starts = [0]
+    while starts[-1] + window_frames < total_frames:
+        starts.append(min(starts[-1] + window_frames - overlap_frames, total_frames - window_frames))
+    return starts
 
 
 class SAIDPipeline:
@@ -319,3 +331,85 @@ class SAIDPipeline:
             result=result.cpu().numpy(),
             intermediates=None if interms is None else interms.cpu().numpy(),
         )
+
+    def inference_streaming(
+        self,
+        waveform_processed: np.ndarray,
+        window_frames: int = 3600,
+        overlap_frames: int = 360,
+        num_inference_steps: int = 100,
+        guidance_scale: float = 2.5,
+        guidance_rescale: float = 0.0,
+        eta: float = 0.0,
+        solver: str = "ddim",
+        fps: int = 60,
+        generator: Optional[torch.Generator] = None,
+        window_noise: Optional[Sequence[Mapping[str, np.ndarray]]] = None,
+    ) -> SAIDInferenceOutput:
+        """Windowed long-clip serving (the JAX ``inference_streaming``,
+        said_tpu/models/said.py:736): the clip is generated as successive
+        ``window_frames``-frame windows; each window after the first runs
+        the editing path with its leading frames pinned (mask 1) to the
+        coefficients already generated for them, which the inpainting
+        re-noising makes land on those values exactly at the last step, so
+        windows join without seams. Self-attention then spans one window:
+        work per clip-second is constant in clip length.
+
+        ``window_frames`` must be a multiple of 3 (a frame is 800/3 samples
+        at 16 kHz and 60 fps); ``0 < overlap_frames < window_frames``. The
+        waveform is ``process_audio``-normalised over the whole clip. A clip
+        that fits one window is a plain :meth:`inference` call.
+
+        Randomness: every window draws from ``generator`` in turn (the JAX
+        package splits one key a window). ``window_noise``, one mapping a
+        window (:func:`streaming_starts` gives the windows), injects arrays
+        that pass straight to :meth:`inference`: the first window's
+        ``latents`` (B, window, C), a later window's ``edit_noise`` and
+        ``eta_noise``. Returns the stitched (B, total_frames, C) result.
+        """
+        if window_frames % 3:
+            raise ValueError("window_frames must be a multiple of 3 (a frame is 800/3 samples at 16 kHz / 60 fps, "
+                             "so only 3-frame groups span whole samples)")
+        if not 0 < overlap_frames < window_frames:
+            raise ValueError(f"overlap_frames ({overlap_frames}) must be in (0, window_frames={window_frames})")
+        wave = np.asarray(waveform_processed)
+        if wave.ndim == 1:
+            wave = wave[None]
+        b, t_a = wave.shape
+        total_frames = int(t_a / self.sampling_rate * fps)
+        c = self.model.in_channels
+        starts = streaming_starts(total_frames, window_frames, overlap_frames)
+        if window_noise is not None and len(window_noise) != len(starts):
+            raise ValueError(f"window_noise holds {len(window_noise)} windows, the clip has {len(starts)}")
+        common = dict(num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                      guidance_rescale=guidance_rescale, eta=eta, solver=solver, fps=fps, generator=generator)
+
+        def noise(k):
+            return {} if window_noise is None else dict(window_noise[k])
+
+        if total_frames <= window_frames:
+            return self.inference(wave, **common, **noise(0))
+
+        w = window_frames
+        spf = self.sampling_rate / fps  # 800/3: not an integer
+        wave_len = (w * self.sampling_rate) // fps  # exact: w % 3 == 0
+        out = np.zeros((b, total_frames, c), np.float32)
+        covered = 0
+        for k, start in enumerate(starts):
+            # the sample offset rounds to the nearest sample (a shift of at
+            # most 1/3 sample); start + w ≤ total_frames keeps the slice in
+            # the buffer
+            s0 = min(int(round(start * spf)), t_a - wave_len)
+            wave_k = wave[:, s0 : s0 + wave_len]
+            if k == 0:
+                out[:, :w] = self.inference(wave_k, **common, **noise(k)).result
+            else:
+                kept = covered - start  # the overlap; more only for the last window
+                init = np.zeros((b, w, c), np.float32)
+                init[:, :kept] = out[:, start:covered]
+                mask = np.zeros((b, w, c), np.float32)
+                mask[:, :kept] = 1.0
+                res = self.inference(wave_k, init_samples=init, mask=mask, **common, **noise(k)).result
+                out[:, covered : start + w] = res[:, kept:]
+            covered = start + w
+        return SAIDInferenceOutput(result=out, intermediates=None)

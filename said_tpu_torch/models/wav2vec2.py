@@ -25,8 +25,9 @@ attention-probability dropout and layerdrop at the config's rates, drawn
 from that generator; attention is then always the dense form (the
 probabilities are dropped out). Spec-augment: ``mask_time_indices``
 (``compute_time_mask_indices``, host-side numpy) replaces masked frames
-by the learned ``masked_spec_embed``. Not ported yet: the "layer"
-feature-extractor norm's forward.
+by the learned ``masked_spec_embed``. The "layer" feature-extractor norm
+(``feat_extract_norm="layer"``) runs the conv with its bias, the
+LayerNorm kernel router over the channels and GELU on every conv layer.
 """
 
 from __future__ import annotations
@@ -89,20 +90,29 @@ class Wav2Vec2Config:
 
 
 class _ConvLayer(nn.Module):
-    """One feature-extractor conv layer: conv (+ per-channel GroupNorm) + GELU.
+    """One feature-extractor conv layer: conv (+ a norm) + GELU.
 
-    Norm-free stride-2 layers with k ∈ {2, 3} and no bias take the fused
-    stride-2 conv+GELU kernel; the others (``conv_0``: k=10, s=5, then the
-    GroupNorm kernel) are one plain GEMM over the unfolded input.
+    ``norm`` is None (or False), "group" (per-channel GroupNorm over time: ``conv_0``
+    of the "group" config) or "layer" (LayerNorm over the channels: every
+    layer of the "layer" config), both stored as ``layer_norm`` (the HF
+    name). Norm-free stride-2 layers with k ∈ {2, 3} and no bias take the
+    fused stride-2 conv+GELU kernel; the others (``conv_0``: k=10, s=5;
+    every "layer" layer, as in the JAX package, which runs those convs
+    outside Pallas) are one plain GEMM over the unfolded input, then the
+    norm's kernel.
     """
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int,
-                 bias: bool, group_norm: bool, eps: float):
+                 bias: bool, norm: Optional[str], eps: float):
         super().__init__()
         self.kernel, self.stride = kernel, stride
-        self.fused = stride == 2 and kernel in (2, 3) and not bias and not group_norm
+        self.fused = stride == 2 and kernel in (2, 3) and not bias and not norm
         self.conv = nn.Conv1d(in_dim, out_dim, kernel, stride=stride, bias=bias)
-        self.layer_norm = GroupNorm32(out_dim, num_groups=out_dim, eps=eps) if group_norm else None
+        self.layer_norm = None
+        if norm == "group":
+            self.layer_norm = GroupNorm32(out_dim, num_groups=out_dim, eps=eps)
+        elif norm == "layer":
+            self.layer_norm = LayerNormF32(out_dim, eps)
         # fused kernel: (C_out, C_in, K) -> (C_out, K, C_in), read as the
         # packed (K, C_in, C_out) kernel (ops.conv.pack_weight); GEMM: (C_out, C_in·K)
         self._w = Derived(
@@ -119,8 +129,10 @@ class _ConvLayer(nn.Module):
             cols = x.unfold(1, self.kernel, self.stride).reshape(x.shape[0], -1, x.shape[2] * self.kernel)
             bias = None if self.conv.bias is None else self._b(self.conv.bias, dt)
             h = F.linear(cols, self._w(self.conv.weight, dt), bias)
-            if self.layer_norm is not None:
+            if isinstance(self.layer_norm, GroupNorm32):
                 h = self.layer_norm(h, None if frames is None else frames.lengths)
+            elif self.layer_norm is not None:  # per frame: pads need no mask
+                h = self.layer_norm(h)
             h = F.gelu(h)
         # pads stay exactly zero, so the next VALID conv's real outputs
         # read only real samples
@@ -132,11 +144,17 @@ class FeatureExtractor(nn.Module):
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
-        if config.feat_extract_norm != "group":
-            raise NotImplementedError("only the 'group' feature-extractor norm is ported")
+        if config.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"unknown feat_extract_norm: {config.feat_extract_norm!r}")
         dims = (1,) + tuple(config.conv_dim)
+
+        def norm(i):
+            if config.feat_extract_norm == "layer":
+                return "layer"
+            return "group" if i == 0 else None
+
         self.conv_layers = nn.ModuleList(
-            _ConvLayer(dims[i], dims[i + 1], k, s, config.conv_bias, i == 0, config.layer_norm_eps)
+            _ConvLayer(dims[i], dims[i + 1], k, s, config.conv_bias, norm(i), config.layer_norm_eps)
             for i, (k, s) in enumerate(zip(config.conv_kernel, config.conv_stride))
         )
 

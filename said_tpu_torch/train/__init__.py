@@ -1,1 +1,1 @@
-"""SAiD denoiser training: loss, optimizer, EMA and the train step."""
+"""SAiD denoiser and BCVAE training: losses, optimizer, EMA and the train steps."""

@@ -180,20 +180,27 @@ class Optimizer:
     The state is the count and the two moments; the NaN guard of
     ``train_step`` skips ``update`` whole, so a skipped step keeps the old
     count (the bias correction's and the schedule's) as well.
+
+    The SAiD and the BCVAE trainers share it: the learning rate, its
+    warm-up steps and the clip norm are keywords, or are read from
+    ``config`` (any object with those three fields).
     """
 
     b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 0.01
 
-    def __init__(self, params: Sequence[torch.Tensor], config: TrainConfig):
+    def __init__(self, params: Sequence[torch.Tensor], config=None, *, learning_rate: float = 1e-5,
+                 warmup_steps: int = 0, grad_clip: float = 1.0):
+        if config is not None:
+            learning_rate, warmup_steps, grad_clip = config.learning_rate, config.warmup_steps, config.grad_clip
         self.params = list(params)
-        self.config = config
+        self.lr, self.warmup_steps, self.grad_clip = learning_rate, warmup_steps, grad_clip
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     def learning_rate(self, count: int) -> float:
         """The schedule at update ``count`` (before it is applied)."""
-        lr, warmup = np.float32(self.config.learning_rate), self.config.warmup_steps
+        lr, warmup = np.float32(self.lr), self.warmup_steps
         if warmup > 0 and count < warmup:
             frac = np.float32(1.0) - np.float32(count) / np.float32(warmup)
             return float((np.float32(0.0) - lr) * frac + lr)
@@ -203,7 +210,7 @@ class Optimizer:
     def update(self, grads: Sequence[torch.Tensor]) -> None:
         """One optimizer update of the parameters from their gradients."""
         grads = [g.float() for g in grads]
-        max_norm = self.config.grad_clip
+        max_norm = self.grad_clip
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # clip_by_global_norm: (g / norm) · max_norm where norm ≥ max_norm,
         # g itself below it, chosen on the device (no host sync)
@@ -252,7 +259,8 @@ class TrainState:
         freeze_encoder_(model)
         self.model, self.config = model, config
         self.params = trainable_parameters(model)
-        self.optimizer = Optimizer(self.params.values(), config)
+        self.optimizer = Optimizer(self.params.values(), learning_rate=config.learning_rate,
+                                   warmup_steps=config.warmup_steps, grad_clip=config.grad_clip)
         self.ema = {n: p.detach().clone() for n, p in self.params.items()} if config.ema else None
         self.step = 0
 

@@ -1,13 +1,14 @@
 """The port's CLI and import hygiene, on the CPU.
 
-The CLI runs in a subprocess in which ``jax``, ``flax``, ``pandas`` and
-the JAX package ``said_tpu`` cannot be imported (the machine with the
-card has none of the first three, and the port depends on nothing of
-the fourth): every module of ``said_tpu_torch`` is imported there first, then
-``said_tpu_torch.cli.inference --device cpu --num_steps 3`` turns a
-0.8-s WAV into a CSV of 48 rows under the 32 ARKit names, and
+The CLIs run in a subprocess in which ``jax``, ``flax``, ``pandas``,
+``sklearn`` and the JAX package ``said_tpu`` cannot be imported (the
+machine with the card has none of the first four, and the port depends on
+nothing of the fifth): every module of ``said_tpu_torch`` is imported
+there first, then ``said_tpu_torch.cli.inference --device cpu --num_steps
+3`` turns a 0.8-s WAV into a CSV of 48 rows under the 32 ARKit names,
 ``said_tpu_torch.cli.test_inference`` turns a one-clip test split into
-its CSVs.
+its CSVs, and ``train_vae``, ``inference_vae`` and ``test_evaluate`` run
+in turn on toy data.
 """
 
 import argparse
@@ -43,19 +44,25 @@ _BLOCKED_RUN = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
+    BLOCKED = ("jax", "flax", "pandas", "sklearn", "triton", "said_tpu")
+
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "flax", "pandas", "triton", "said_tpu"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, Block())
     import said_tpu_torch
     for mod in pkgutil.walk_packages(said_tpu_torch.__path__, "said_tpu_torch."):
         importlib.import_module(mod.name)
-    from said_tpu_torch.cli import inference, test_inference
-    cli = {"inference": inference, "test_inference": test_inference}[sys.argv[1]]
-    cli.main(sys.argv[2:])
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pandas", "triton", "said_tpu"))
+    # argv: <cli> <args...> [--then <cli> <args...>]...
+    argv = sys.argv[1:]
+    while argv:
+        cut = argv.index("--then") if "--then" in argv else len(argv)
+        cli = importlib.import_module("said_tpu_torch.cli." + argv[0])
+        cli.main(argv[1:cut])
+        argv = argv[cut + 1 :]
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     """
 )
@@ -82,6 +89,39 @@ def test_cli_runs_without_jax_flax_pandas(tmp_path):
     assert coeffs.shape == (48, 32)
     assert np.isfinite(coeffs).all() and coeffs.min() >= 0.0 and coeffs.max() <= 1.0
     assert coeffs.std() > 1e-3
+
+
+def test_vae_clis_run_without_jax_flax_pandas_sklearn(tmp_path):
+    """(and without ``said_tpu``): ``train_vae`` for one epoch on a toy
+    tree, ``inference_vae`` on one of its CSVs, ``test_evaluate`` on a
+    one-clip split with generated = real + noise."""
+    from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES, PERSON_IDS_TRAIN
+
+    rng = np.random.default_rng(0)
+    pid = blendvoca.PERSON_IDS_TEST[0]
+    for sub, person, name in (("coeffs", PERSON_IDS_TRAIN[0], "sentence01.csv"), ("real", pid, "sentence01.csv"),
+                              ("gen", pid, "sentence01-0.csv"), ("gen", pid, "sentence01-1.csv")):
+        (tmp_path / sub / person).mkdir(parents=True, exist_ok=True)
+        save_blendshape_coeffs(rng.uniform(0, 1, (130, 32)).astype(np.float32), BLENDSHAPE_CLASSES,
+                               str(tmp_path / sub / person / name))
+    _test_split(tmp_path / "audio", [[130 / 60]])
+    csv_in = str(tmp_path / "coeffs" / PERSON_IDS_TRAIN[0] / "sentence01.csv")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN,
+         "train_vae", "--device", "cpu", "--coeffs_dir", str(tmp_path / "coeffs"), "--output_dir",
+         str(tmp_path / "vae_out"), "--epochs", "1", "--batch_size", "2", "--save_period", "1", "--then",
+         "inference_vae", "--device", "cpu", "--blendshape_coeffs_path", csv_in, "--output_path",
+         str(tmp_path / "recon.csv"), "--then",
+         "test_evaluate", "--device", "cpu", "--audio_dir", str(tmp_path / "audio"), "--coeffs_dir",
+         str(tmp_path / "gen"), "--coeffs_real_dir", str(tmp_path / "real"), "--wind_num_clusters", "2",
+         "--wind_num_repeats", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (tmp_path / "vae_out" / "ckpt" / "1" / "train_state.pt").is_file()
+    assert _read_csv(tmp_path / "recon.csv").shape == (120, 32)
+    metrics = proc.stdout.strip().splitlines()[-1]
+    assert "frechet_distance" in metrics and "wind" in metrics
 
 
 def _write_wav(path, seconds=0.4):
@@ -202,8 +242,8 @@ def test_csv_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--streaming_window", "600", "--length_bucket", "120"], "Queue 1 item 9"),
-        (["--streaming_window", "3600"], "Queue 1 item 9"),
+        (["--streaming_window", "600", "--length_bucket", "120"],
+         "--length_bucket is not supported with --streaming_window"),
         (["--seq_shards", "2"], "Queue 1 item 13"),
         (["--attn_impl", "flash_sp"], "Queue 1 item 13"),
     ],
@@ -213,16 +253,32 @@ def test_unported_options_fail_loudly(flags, item):
         inference.main(["--device", "cpu", *flags])
 
 
+@pytest.mark.parametrize("flags,message", [
+    (["--init_sample_path", "init.csv"], "--init_sample_path is not supported with --streaming_window"),
+    (["--mask_path", "mask.csv"], "--mask_path is not supported with --streaming_window"),
+    (["--save_intermediate", "true"], "--save_intermediate is not supported with --streaming_window"),
+    (["--seq_shards", "2"], "--seq_shards is not supported with --streaming_window"),
+    (["--strength", "0.5"], "--strength is not supported with --streaming_window"),
+], ids=["init_sample_path", "mask_path", "save_intermediate", "seq_shards", "strength"])
+def test_streaming_refusals_match_the_jax_cli(flags, message):
+    """said_tpu/cli/inference.py:166-178's refusals, word for word."""
+    with pytest.raises(SystemExit, match=message):
+        inference.main(["--device", "cpu", "--streaming_window", "600", *flags])
+
+
 @pytest.mark.parametrize(
     "flags,kw",
     [(["--solver", "dpmpp_2m"], {"solver": "dpmpp_2m"}), (["--attn_impl", "flash"], {}),
-     (["--length_bucket", "16"], {"length_bucket": 16})],
-    ids=["dpmpp_2m", "attn_flash", "length_bucket"],
+     (["--length_bucket", "16"], {"length_bucket": 16}),
+     (["--streaming_window", "12", "--streaming_overlap", "3"], {"window_frames": 12, "overlap_frames": 3})],
+    ids=["dpmpp_2m", "attn_flash", "length_bucket", "streaming_window"],
 )
 def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
-    """``--solver dpmpp_2m`` reaches the sampler and ``--attn_impl flash``
-    routes as ``auto``: the CSV equals the same request made straight
-    through ``SAIDPipeline`` (tiny encoder, 0.4-s clip, 3 steps)."""
+    """``--solver dpmpp_2m`` reaches the sampler, ``--attn_impl flash``
+    routes as ``auto`` and ``--streaming_window`` serves the clip as
+    windows (24 frames as 12-frame windows at 0, 9 and 12): the CSV equals
+    the same request made straight through ``SAIDPipeline`` (tiny encoder,
+    0.4-s clip, 3 steps)."""
     def tiny(*args, **kwargs):
         return SAID(audio_config=Wav2Vec2Config.tiny())
 
@@ -233,8 +289,9 @@ def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
                           "--output_path", str(out), *flags])
     pipe = SAIDPipeline(load_said_weights(tiny(), "", seed=0).eval())
     wave = process_audio(audio.fit_audio_unet(audio.load_audio(str(wav), 16000), 16000, 60, 1).waveform)
-    want = pipe.inference(wave, num_inference_steps=3, guidance_scale=2.0,
-                          generator=torch.Generator().manual_seed(0), **kw).result[0, :24]
+    run = pipe.inference_streaming if "window_frames" in kw else pipe.inference
+    want = run(wave, num_inference_steps=3, guidance_scale=2.0, generator=torch.Generator().manual_seed(0),
+               **kw).result[0, :24]
     np.testing.assert_array_equal(got, want)
     assert load_blendshape_coeffs(str(out)).shape == (24, 32)
 
@@ -295,5 +352,6 @@ def test_missing_weights_file_raises(tmp_path):
 
 def test_no_library_kernels_in_the_port():
     src = "\n".join(p.read_text() for p in (REPO / "said_tpu_torch").rglob("*.py"))
-    for banned in ("scaled_dot_product_attention", "torch.compile", "import jax", "import flax", "import pandas"):
+    for banned in ("scaled_dot_product_attention", "torch.compile", "import jax", "import flax", "import pandas",
+                   "import sklearn", "from sklearn"):
         assert banned not in src, banned

@@ -26,9 +26,15 @@ from said_tpu_torch.cli._common import random_init_
 from said_tpu_torch.convert import said_state_dict
 from said_tpu_torch.models.said import SAID
 from said_tpu_torch.models.unet1d import build_kv_caches, time_embed_table
-from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from said_tpu_torch.models.layers import LayerNormF32
+from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+# a three-layer "layer"-norm encoder (the feature extractor of wav2vec2-large's kind)
+LAYER_NORM_CONFIG = dict(conv_dim=(16, 16, 16), conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2), hidden_size=32,
+                         num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
+                         num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, output_hidden_size=32,
+                         feat_extract_norm="layer")
 THREE_LAYER = dict(conv_dim=(16, 16, 16), conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2),
                    hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
                    num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, output_hidden_size=32)
@@ -92,14 +98,12 @@ def test_convert_writes_the_layer_feature_norm():
     """A "layer" feature-extractor norm (wav2vec2-large's) has a LayerNorm
     on every conv layer; the JAX package's exporter skips it, the port's
     conversion writes ``conv_layers.{i}.layer_norm.{weight,bias}`` for each
-    layer, equal to the JAX params (the port's forward for it is not
-    ported: its FeatureExtractor refuses the config)."""
+    layer, equal to the JAX params, and the port's encoder of that config
+    loads the result with ``strict=True``."""
     from said_tpu.models.wav2vec2 import Wav2Vec2Encoder as JEncoder
     from said_tpu_torch.convert import wav2vec2_state_dict
 
-    cfg = JCfg(conv_dim=(16, 16, 16), conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2), hidden_size=32,
-               num_hidden_layers=1, num_attention_heads=2, intermediate_size=64, num_conv_pos_embeddings=16,
-               num_conv_pos_embedding_groups=4, output_hidden_size=32, feat_extract_norm="layer")
+    cfg = JCfg(**LAYER_NORM_CONFIG)
     shapes = jax.eval_shape(lambda: JEncoder(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 3200)), 12))["params"]
     rng = np.random.default_rng(0)
     params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
@@ -108,8 +112,38 @@ def test_convert_writes_the_layer_feature_norm():
         norm = params["feature_extractor"][f"conv_{i}"]["norm"]
         ln = f"audio_encoder.feature_extractor.conv_layers.{i}.layer_norm"
         assert np.array_equal(sd[f"{ln}.weight"], norm["scale"]) and np.array_equal(sd[f"{ln}.bias"], norm["bias"])
-    with pytest.raises(NotImplementedError):
-        SAID(audio_config=Wav2Vec2Config(feat_extract_norm="layer"))
+    enc = Wav2Vec2Encoder(Wav2Vec2Config(**LAYER_NORM_CONFIG, conv_bias=False))
+    enc.load_state_dict({k: _t(v) for k, v in wav2vec2_state_dict(params, prefix="").items()}, strict=True)
+    assert [type(layer.layer_norm) for layer in enc.feature_extractor.conv_layers] == [LayerNormF32] * 3
+
+
+@pytest.mark.parametrize("lengths", [None, [6400, 4000]], ids=["plain", "lengths"])
+def test_layer_feature_extractor_matches_jax(lengths):
+    """The "layer" feature extractor (conv with bias → the LayerNorm router
+    over channels → GELU on every layer; no fused conv) against the JAX
+    ``FeatureExtractor``, f32, within 1e-5 of max |JAX|; with per-row
+    lengths the pads are zero after every layer, as in the JAX package."""
+    from said_tpu.models.wav2vec2 import FeatureExtractor as JFeatureExtractor
+    from said_tpu.models.wav2vec2 import Wav2Vec2Encoder as JEncoder
+    from said_tpu_torch.convert import wav2vec2_state_dict
+
+    jcfg = JCfg(**LAYER_NORM_CONFIG, conv_bias=True)
+    shapes = jax.eval_shape(lambda: JEncoder(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 3200)), 12))["params"]
+    rng = np.random.default_rng(1)
+    params = jax.tree.map(lambda s: (rng.standard_normal(s.shape) * 0.5).astype(np.float32), shapes)
+    enc = Wav2Vec2Encoder(Wav2Vec2Config(**LAYER_NORM_CONFIG, conv_bias=True))
+    enc.load_state_dict({k: _t(v) for k, v in wav2vec2_state_dict(params, prefix="").items()}, strict=True)
+    assert not any(layer.fused for layer in enc.feature_extractor.conv_layers)
+    wave = _rand((2, 6400), 11)
+    j_len = None if lengths is None else jnp.asarray(lengths)
+    want, want_real = JFeatureExtractor(jcfg).apply({"params": params["feature_extractor"]}, jnp.asarray(wave), j_len)
+    with torch.no_grad():
+        got, real = enc.feature_extractor(_t(wave), torch.float32, None if lengths is None else np.asarray(lengths))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    if lengths is not None:
+        np.testing.assert_array_equal(real, np.asarray(want_real))
+        assert not got[1, int(real[1]):].any()
 
 
 def test_random_init_rule():
