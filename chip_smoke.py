@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; there is no try/except around them):
 
 1. Environment: torch/CUDA versions, the card's name and power limit;
    build the CUDA C++ kernels from ``said_tpu_torch/csrc`` and compile the
-   Triton kernels (the GroupNorm split), with their build times.
+   Triton kernels (the GroupNorm split), and build the native QP solver
+   (``said_tpu_torch/optimize/csrc``, ``g++``), with their build times.
 2. Every kernel of the main paths against its plain PyTorch twin on the
    card, at the main paths' shapes and at ragged ones, in float32 and
    bfloat16: max |kernel − plain| ≤ 1e-4 · max|plain| (f32) or
@@ -175,6 +176,34 @@ Phases (any failure exits non-zero; there is no try/except around them):
     itself ≤ 1e-6 · trace(Σ); each CLI's wall time, and the encoding and
     one mixture fit apart, also as an ``{"evaluation": ...}`` JSON line.
 
+21. The asset pipeline at BlendVOCA's sizes (host numpy, the QP's ADMM on
+    the card): 2 persons' synthetic 5023-vertex templates (FLAME's count,
+    grid faces) and a deltas pickle through ``preprocess_blendvoca`` (the
+    port's ``FLAME_head_idx.txt``: 4580 head vertices), then
+    ``optimize_blendshape_coeffs`` over 1 sentence a person of 120 binary
+    PLY frames (head = neutral + deltas times known smooth weights +
+    noise; delta 0.1): native solver, CSVs within 5e-3 of the known
+    weights. Then ``solve_sequence_qp`` at N=32 and 13740 coordinates, T
+    = 240 and 3600, with the box and smoothness active: native, the
+    float32 ADMM on the card and on the CPU; the card within 1e-4 of both,
+    the box within 1e-6, |Δw| ≤ δ + 1e-5; wall times, iterations, and the
+    ADMM's launches and device µs an iteration (``torch.profiler``, 48
+    iterations less 16), equal at both T. (``g++`` builds the QP library in
+    phase 1; a failed build fails the run.)
+22. WAV → CSV → video: the inference CLI on a 1-s clip (``--solver
+    dpmpp_2m --num_steps 25``, exact launch counts); ``render`` at
+    800×800 with the WAV, ``--show_difference`` against a perturbed CSV,
+    ``--save_images``: one ``00dc`` chunk a CSV row, each an SOI…EOI JPEG
+    whose SOF0 says 800×800, an ``idx1`` entry a chunk, the PCM equal to
+    the clipped int16 WAV, a PNG a frame; rasterize and encode ms a frame;
+    ``test_render`` over a two-file tree (5 frames each).
+23. An HF wav2vec2 snapshot as ``--init_weights``: a base-width
+    ``model.safetensors`` written by the script's own writer (``wav2vec2.``
+    prefix, ``lm_head.*``, ``masked_spec_embed``): after
+    ``load_said_weights`` every audio-encoder tensor on the card is
+    bit-equal to the snapshot's; two train-CLI steps from it (phase 15's
+    tree) end with a finite loss and the frozen encoder still bit-equal.
+
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
@@ -215,6 +244,7 @@ from said_tpu_torch.cli._common import (  # noqa: E402
 from said_tpu_torch.data.blendvoca import PERSON_IDS_TEST  # noqa: E402
 from said_tpu_torch.models.said import SAIDPipeline, process_audio, streaming_starts  # noqa: E402
 from said_tpu_torch.ops import attention, conv, ffn, norms  # noqa: E402
+from said_tpu_torch.optimize import native as qp_native  # noqa: E402
 
 DEV = torch.device("cuda")
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -1568,6 +1598,354 @@ def phase_vae_clis(gpu_line):
                                      "metrics": result}}))
 
 
+# ------------------------------------------------------------ the asset pipeline
+
+# the pseudo-GT QP: the f32 ADMM on the card against the native f64 solver
+# and against the same ADMM on the CPU (max abs); the box and the
+# smoothness bound; the CLI's CSVs against the weights the meshes were made
+# from (no constraint active)
+QP_BOUND = 1e-4
+QP_BOX, QP_SMOOTH, QP_RECOVER = 1e-6, 1e-5, 5e-3
+FLAME_VERTICES, SEQ_FRAMES, DELTA = 5023, 120, 0.1
+
+
+def flame_like_template(seed):
+    """A 5023-vertex (FLAME's count) front-facing surface with a bump: the
+    first 5023 vertices of a 69 x 73 grid over 0.3 m, faces over the grid's
+    whole quads."""
+    from said_tpu_torch.utils.mesh import create_mesh
+
+    rows, cols = 69, 73
+    x, y = np.meshgrid(np.linspace(-0.15, 0.15, cols), np.linspace(0.16, -0.16, rows))
+    z = 0.05 * np.exp(-(x**2 + y**2) / 0.01) + 0.001 * np.random.default_rng(seed).standard_normal(x.shape)
+    verts = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1)[:FLAME_VERTICES]
+    i = (np.arange(rows - 1)[:, None] * cols + np.arange(cols - 1)[None, :]).ravel()
+    faces = np.concatenate([np.stack([i, i + 1, i + cols], 1), np.stack([i + 1, i + cols + 1, i + cols], 1)])
+    return create_mesh(verts, faces[(faces < FLAME_VERTICES).all(axis=1)])
+
+
+def blendshape_bumps(head, seed):
+    """32 smooth deltas on the head vertices: a Gaussian bump each (5 mm,
+    sigma 1.5 cm) along a random direction, centred on a jittered 8 x 4
+    grid over the face, so that the Gram matrix is well conditioned."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.linspace(-0.12, 0.12, 8), np.linspace(-0.12, 0.12, 4))
+    centres = np.stack([gx.ravel(), gy.ravel()], axis=1) + rng.uniform(-0.005, 0.005, (32, 2))
+    out = {}
+    for name, centre in zip(ARKIT_BLENDSHAPES, centres):
+        direction = rng.standard_normal(3)
+        weight = np.exp(-((head[:, :2] - centre) ** 2).sum(axis=1) / (2 * 0.015**2))
+        out[name] = 0.005 * weight[:, None] * direction / np.linalg.norm(direction)
+    return out
+
+
+def smooth_weights(frames, seed, amplitude=0.3):
+    """(frames, 32) sinusoids about 0.5, 0.5 to 2 periods over 120 frames:
+    at most 0.032 a frame apart at amplitude 0.3."""
+    rng = np.random.default_rng(seed)
+    f, phase = rng.uniform(0.5, 2.0, 32), rng.uniform(0, 2 * np.pi, 32)
+    return 0.5 + amplitude * np.sin(2 * np.pi * np.outer(np.arange(frames), f) / SEQ_FRAMES + phase)
+
+
+def timed_call(fn):
+    """(result, wall s) of one call, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def admm_launches(gram, q):
+    """Kernel launches and device µs an ADMM iteration on the card, from
+    two runs under ``torch.profiler`` (CUDA activity) that never stop early
+    (tol < 0) and never read the stop flag: 16 and 48 iterations, so the
+    set-up and the result's copy cancel. Copies, memsets and the
+    profiler's own buffer events are not launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from said_tpu_torch.optimize.qp import admm_sequence_qp
+
+    def run(n):
+        return admm_sequence_qp(gram, q, DELTA, max_iters=n, tol=-1.0, device=DEV, check_every=10**6)
+
+    run(16)  # the caching allocator's blocks for this T
+    kernels = {}
+    for n in (16, 48):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        kernels[n] = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer"))]
+    launches = (len(kernels[48]) - len(kernels[16])) / 32
+    busy_us = (sum(e.time_range.elapsed_us() for e in kernels[48])
+               - sum(e.time_range.elapsed_us() for e in kernels[16])) / 32
+    return launches, busy_us
+
+
+def phase_pseudo_gt(gpu_line):
+    print(f"\n== phase 21: pseudo-GT at BlendVOCA's sizes: preprocess_blendvoca (2 persons' {FLAME_VERTICES}-vertex "
+          f"templates cropped to the FLAME head) -> optimize_blendshape_coeffs (1 sentence a person, {SEQ_FRAMES} "
+          f"binary PLY frames, delta {DELTA}); the QP at N=32 and 13740 coordinates, T=240 and 3600: native, the "
+          f"ADMM on the card, the ADMM on the CPU ==")
+    import pickle
+
+    from said_tpu_torch.cli import optimize_blendshape_coeffs, preprocess_blendvoca
+    from said_tpu_torch.data.assets import asset_path
+    from said_tpu_torch.optimize.qp import solve_sequence_qp
+    from said_tpu_torch.utils.blendshape import load_blendshape_coeffs
+    from said_tpu_torch.utils.mesh import create_mesh, save_mesh
+    from said_tpu_torch.utils.parser import parse_list
+
+    root = os.path.join(WORK, "pseudo_gt")
+    shutil.rmtree(root, ignore_errors=True)
+    head_idx = np.asarray(parse_list(asset_path("FLAME_head_idx.txt"), int))
+    templates, deltas, weights = {}, {}, {}
+    os.makedirs(os.path.join(root, "templates"))
+    t0 = time.perf_counter()
+    for k, pid in enumerate(PERSON_IDS_TEST):
+        templates[pid] = flame_like_template(seed=k)
+        save_mesh(templates[pid], os.path.join(root, "templates", f"{pid}.ply"))
+        deltas[pid] = blendshape_bumps(templates[pid].vertices[head_idx], seed=10 + k)
+        weights[pid] = smooth_weights(SEQ_FRAMES, seed=20 + k)
+        basis = np.stack([deltas[pid][n] for n in ARKIT_BLENDSHAPES], axis=-1)  # (V_head, 3, 32)
+        seq_dir = os.path.join(root, "seqs", pid, "sentence01")
+        os.makedirs(seq_dir)
+        noise = np.random.default_rng(30 + k)
+        for t in range(SEQ_FRAMES):
+            verts = templates[pid].vertices.copy()
+            verts[head_idx] += basis @ weights[pid][t] + 1e-5 * noise.standard_normal((len(head_idx), 3))
+            save_mesh(create_mesh(verts, templates[pid].faces), os.path.join(seq_dir, f"{t:05}.ply"))
+    with open(os.path.join(root, "deltas.pickle"), "wb") as f:
+        pickle.dump(deltas, f)
+    walls = {"write_tree": time.perf_counter() - t0}
+
+    blend = os.path.join(root, "BlendVOCA")
+    t0 = time.perf_counter()
+    done = preprocess_blendvoca.main(["--templates_dir", os.path.join(root, "templates"), "--blendshape_residuals_path",
+                                      os.path.join(root, "deltas.pickle"), "--blendshapes_out_dir", blend])
+    walls["preprocess_blendvoca"] = time.perf_counter() - t0
+    check(done == PERSON_IDS_TEST, f"preprocess processed {done}")
+    t0 = time.perf_counter()
+    solutions = optimize_blendshape_coeffs.main([
+        "--neutrals_dir", os.path.join(blend, "templates_head"), "--blendshapes_dir",
+        os.path.join(blend, "blendshapes_head"), "--mesh_seqs_dir", os.path.join(root, "seqs"),
+        "--blendshapes_coeffs_out_dir", os.path.join(root, "coeffs"), "--delta", str(DELTA)])
+    walls["optimize_blendshape_coeffs"] = time.perf_counter() - t0
+    check(sorted(solutions) == [(pid, 1) for pid in PERSON_IDS_TEST]
+          and all(s.solver == "native" for s in solutions.values()), f"optimize solutions {solutions.keys()}")
+    for pid in PERSON_IDS_TEST:
+        got = load_blendshape_coeffs(os.path.join(root, "coeffs", pid, "sentence01.csv"))
+        err = np.abs(got - weights[pid]).max()
+        print(f"{pid}: CSV {got.shape}, native solver {solutions[pid, 1].iterations} iterations, max |w - known| "
+              f"{err:.2e} (bound {QP_RECOVER:.0e})")
+        check(got.shape == (SEQ_FRAMES, 32) and err <= QP_RECOVER, f"{pid}: pseudo-GT off the known weights by {err}")
+    print(f"wall: synthetic tree {walls['write_tree']:.2f} s ({2 * SEQ_FRAMES} PLY frames), preprocess_blendvoca "
+          f"{walls['preprocess_blendvoca']:.2f} s ({2 * 33} OBJ), optimize_blendshape_coeffs "
+          f"{walls['optimize_blendshape_coeffs']:.2f} s (66 OBJ + {2 * SEQ_FRAMES} PLY read, 2 QPs) on {gpu_line}")
+
+    # the QP alone at the head's 13740 coordinates: box and smoothness active
+    basis = np.stack([deltas[PERSON_IDS_TEST[0]][n].reshape(-1) for n in ARKIT_BLENDSHAPES], axis=1)
+    gram = basis.T @ basis
+    rng = np.random.default_rng(40)
+    solve_sequence_qp(gram, rng.standard_normal((24, 32)), DELTA, backend="torch", device=DEV)  # CUDA libraries
+    qp_record = {"device": gpu_line, "coordinates": basis.shape[0]}
+    for t in (240, 3600):
+        w_true = np.concatenate([smooth_weights(t, 41, amplitude=0.6)[: t // 2],
+                                 smooth_weights(t, 41, amplitude=0.6)[t // 2:] + 0.3])
+        q = -((w_true @ basis.T + 1e-4 * rng.standard_normal((t, basis.shape[0]))) @ basis)
+        runs, wall = {}, {}
+        for name, kw in (("native", dict(backend="native")), ("card", dict(backend="torch", device=DEV)),
+                         ("cpu", dict(backend="torch", device="cpu"))):
+            runs[name], wall[name] = timed_call(lambda kw=kw: solve_sequence_qp(gram, q, DELTA, **kw))
+        card = runs["card"].w
+        vs_native, vs_cpu = np.abs(card - runs["native"].w).max(), np.abs(card - runs["cpu"].w).max()
+        box = max(-card.min(), card.max() - 1.0, 0.0)
+        smooth = np.abs(np.diff(card, axis=0)).max()
+        active = (runs["native"].w <= 1e-6).mean(), (runs["native"].w >= 1 - 1e-6).mean(), \
+            (np.abs(np.diff(runs["native"].w, axis=0)) >= DELTA - 1e-6).mean()
+        launches, busy_us = admm_launches(gram, q)
+        print(f"T={t}: native {wall['native'] * 1e3:.1f} ms ({runs['native'].iterations} iterations, f64); "
+              f"ADMM card {wall['card'] * 1e3:.1f} ms ({runs['card'].iterations} iterations, "
+              f"{launches:g} launches and {busy_us:.1f} us device busy an iteration); ADMM CPU "
+              f"{wall['cpu'] * 1e3:.1f} ms ({runs['cpu'].iterations} iterations); card vs native {vs_native:.2e}, "
+              f"card vs CPU {vs_cpu:.2e} (bound {QP_BOUND:.0e}); box {box:.1e}, max |dw| - delta "
+              f"{smooth - DELTA:.1e}; active: {active[0]:.3f} at 0, {active[1]:.3f} at 1, {active[2]:.3f} of the "
+              f"differences at delta; on {gpu_line}")
+        check(vs_native <= QP_BOUND and vs_cpu <= QP_BOUND, f"QP T={t}: card vs native {vs_native}, vs CPU {vs_cpu}")
+        check(box <= QP_BOX and smooth <= DELTA + QP_SMOOTH, f"QP T={t}: box {box}, smoothness {smooth}")
+        check(min(active) > 0, f"QP T={t}: a constraint kind is never active {active}")
+        check(launches == int(launches) and launches > 0, f"ADMM launches an iteration {launches}")
+        qp_record[f"T{t}"] = {"native_ms": wall["native"] * 1e3, "native_iterations": runs["native"].iterations,
+                              "card_ms": wall["card"] * 1e3, "card_iterations": runs["card"].iterations,
+                              "cpu_ms": wall["cpu"] * 1e3, "cpu_iterations": runs["cpu"].iterations,
+                              "launches_per_iteration": launches, "device_busy_us_per_iteration": busy_us,
+                              "card_vs_native": float(vs_native), "card_vs_cpu": float(vs_cpu)}
+    check(qp_record["T240"]["launches_per_iteration"] == qp_record["T3600"]["launches_per_iteration"],
+          "ADMM launches an iteration differ between T=240 and T=3600")
+    print(json.dumps({"pseudo_gt": {**{f"{k}_wall_s": v for k, v in walls.items()}, "qp": qp_record}}))
+    return blend
+
+
+def avi_chunks(path):
+    """(the movi list's (fourcc, payload) chunks, idx1's entries) of an AVI."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    start = data.index(b"movi") + 4
+    (size,) = struct.unpack("<I", data[start - 8:start - 4])
+    chunks, i = [], start
+    while i < start - 4 + size:
+        fourcc, (n,) = data[i:i + 4], struct.unpack("<I", data[i + 4:i + 8])
+        chunks.append((fourcc, data[i + 8:i + 8 + n]))
+        i += 8 + n + n % 2
+    check(data[i:i + 4] == b"idx1", f"{path}: no idx1 after movi")
+    (n,) = struct.unpack("<I", data[i + 4:i + 8])
+    return chunks, [data[i + 8 + k:i + 24 + k] for k in range(0, n, 16)]
+
+
+def jpeg_size(data):
+    """(height, width) from a JPEG's SOF0 segment."""
+    import struct
+
+    i = 2
+    while data[i + 1] != 0xC0:
+        check(data[i] == 0xFF and data[i + 1] != 0xDA, "JPEG: no SOF0 before the scan")
+        i += 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+    return struct.unpack(">HH", data[i + 5:i + 9])
+
+
+def phase_render(record, gpu_line, blend):
+    from said_tpu_torch.cli import render, test_render
+    from said_tpu_torch.utils.audio import load_audio
+    from said_tpu_torch.utils.blendshape import save_blendshape_coeffs
+
+    expected = dict(expected_launches(25), flash_attention=0)  # 60 frames: dense self-attention
+    print("\n== phase 22: WAV -> CSV -> video: the inference CLI on a 1-s clip, render at 800x800 with audio, a "
+          "heatmap against a perturbed CSV and PNGs, test_render over a two-file tree ==")
+    cli_request(record, gpu_line, 22, 1.0, 25, ["--solver", "dpmpp_2m"], expected, seed=50)
+    wav, csv_path = os.path.join(WORK, "clip1s.wav"), os.path.join(WORK, "clip1s.csv")
+    _, coeffs = read_csv(csv_path)
+    target = os.path.join(WORK, "clip1s_target.csv")
+    save_blendshape_coeffs(np.clip(coeffs + np.random.default_rng(51).normal(0, 0.1, coeffs.shape), 0, 1)
+                           .astype(np.float32), ARKIT_BLENDSHAPES, target)
+    pid = PERSON_IDS_TEST[0]
+    avi, png_dir = os.path.join(WORK, "clip1s.avi"), os.path.join(WORK, "clip1s_png")
+    shutil.rmtree(png_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = render.main(["--neutral_path", os.path.join(blend, "templates_head", f"{pid}.obj"), "--blendshapes_dir",
+                       os.path.join(blend, "blendshapes_head", pid), "--audio_path", wav, "--blendshape_coeffs_path",
+                       csv_path, "--output_path", avi, "--show_difference", "True",
+                       "--target_diff_blendshape_coeffs_path", target, "--save_images", "True",
+                       "--output_images_dir", png_dir])
+    render_wall = time.perf_counter() - t0
+    chunks, index = avi_chunks(avi)
+    frames = [p for c, p in chunks if c == b"00dc"]
+    pcm = b"".join(p for c, p in chunks if c == b"01wb")
+    want_pcm = (np.clip(load_audio(wav, SR), -1, 1) * 32767.0).astype("<i2").tobytes()
+    sizes = {jpeg_size(f) for f in frames}
+    print(f"render: {len(frames)} frames of {sizes} in {render_wall:.2f} s (rasterize "
+          f"{1e3 * out['rasterize_s'] / out['frames']:.1f} ms a frame, JPEG encode and mux "
+          f"{1e3 * out['encode_s'] / out['frames']:.1f} ms a frame, the rest PNGs and loading) on {gpu_line}; "
+          f"{len(chunks)} chunks, {len(index)} idx1 entries, PCM {len(pcm)} bytes")
+    check(out["frames"] == len(frames) == coeffs.shape[0] == 60, f"{len(frames)} video frames for {coeffs.shape}")
+    check(all(f[:2] == b"\xff\xd8" and f[-2:] == b"\xff\xd9" for f in frames), "a frame is not an SOI..EOI JPEG")
+    check(sizes == {(800, 800)}, f"frame sizes {sizes}")
+    check(len(index) == len(chunks), f"idx1 has {len(index)} entries for {len(chunks)} chunks")
+    check(pcm == want_pcm, "the AVI's PCM is not the clipped int16 WAV")
+    check(len(os.listdir(png_dir)) == len(frames), "PNG count")
+
+    split = os.path.join(WORK, "render_split")
+    shutil.rmtree(split, ignore_errors=True)
+    os.makedirs(os.path.join(split, "audio", pid))
+    os.makedirs(os.path.join(split, "gen", pid))
+    shutil.copy(wav, os.path.join(split, "audio", pid, "sentence01.wav"))
+    for name, rows in (("sentence01.csv", coeffs[:5]), ("sentence01-1.csv", coeffs[5:10])):
+        save_blendshape_coeffs(rows.astype(np.float32), ARKIT_BLENDSHAPES, os.path.join(split, "gen", pid, name))
+    t0 = time.perf_counter()
+    rendered = test_render.main(["--audio_dir", os.path.join(split, "audio"), "--coeffs_dir",
+                                 os.path.join(split, "gen"), "--neutral_dir", os.path.join(blend, "templates_head"),
+                                 "--blendshapes_dir", os.path.join(blend, "blendshapes_head"), "--output_dir",
+                                 os.path.join(split, "out")])
+    test_render_wall = time.perf_counter() - t0
+    counts = {os.path.basename(p): sum(c == b"00dc" for c, _ in avi_chunks(p)[0]) for p in rendered}
+    print(f"test_render: {counts} in {test_render_wall:.2f} s on {gpu_line}")
+    check(counts == {"sentence01.avi": 5, "sentence01-1.avi": 5}, f"test_render wrote {counts}")
+    print(json.dumps({"render": {"device": gpu_line, "frames": out["frames"], "size": [800, 800],
+                                 "rasterize_ms_per_frame": 1e3 * out["rasterize_s"] / out["frames"],
+                                 "encode_ms_per_frame": 1e3 * out["encode_s"] / out["frames"],
+                                 "render_wall_s": render_wall, "test_render_wall_s": test_render_wall}}))
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file: 8-byte header length, JSON header, raw
+    little-endian buffers (float32 here)."""
+    import struct
+
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        blob = t.contiguous().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + len(blob)]}
+        offset += len(blob)
+        blobs.append(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def phase_hf_snapshot(gpu_line):
+    print("\n== phase 23: an HF wav2vec2 snapshot as --init_weights: a base-width model.safetensors (wav2vec2. prefix, "
+          "lm_head.*, masked_spec_embed) -> load_said_weights on the card -> 2 train-CLI steps ==")
+    from said_tpu_torch.cli import train as train_cli
+    from said_tpu_torch.cli._common import load_said_weights
+    from said_tpu_torch.core.checkpoint import STATE_FILE
+
+    snap = os.path.join(WORK, "hf_snapshot")
+    shutil.rmtree(snap, ignore_errors=True)
+    os.makedirs(snap)
+    gen = torch.Generator().manual_seed(60)
+    encoder = {"wav2vec2." + k: torch.randn(v.shape, generator=gen) * 0.02
+               for k, v in build_said_model().audio_encoder.state_dict().items()}
+    extras = {"lm_head.weight": torch.randn((32, 768), generator=gen), "lm_head.bias": torch.zeros(32)}
+    check("wav2vec2.masked_spec_embed" in encoder, "the encoder has no masked_spec_embed")
+    write_safetensors(os.path.join(snap, "model.safetensors"), {**encoder, **extras})
+    print(f"snapshot: {len(encoder)} encoder tensors, "
+          f"{sum(v.numel() for v in encoder.values()) / 1e6:.1f} M values, "
+          f"{os.path.getsize(os.path.join(snap, 'model.safetensors')) / 2**20:.0f} MiB")
+
+    def encoder_equal(state, label):
+        bad = [k for k, v in encoder.items() if not torch.equal(state[k[len("wav2vec2."):]].cpu(), v)]
+        check(not bad, f"{label}: audio-encoder tensors differ from the snapshot: {bad[:5]}")
+
+    model, wall = timed_call(lambda: load_said_weights(build_said_model(), snap, seed=0).to(DEV))
+    encoder_equal({k: v for k, v in model.audio_encoder.state_dict().items()}, "after load_said_weights")
+    print(f"load_said_weights: {wall:.2f} s; every audio-encoder tensor on the card bit-equal to the snapshot")
+    del model
+
+    audio_dir, coeffs_dir = os.path.join(WORK, "train_tree", "audio"), os.path.join(WORK, "train_tree", "coeffs")
+    out_dir = os.path.join(WORK, "train_out_hf")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # phase 15's tree: 16 clips in batches of 8, 2 steps in the epoch
+    train_run("f32, 1 epoch from the snapshot", [
+        "--device", DEV.type, "--audio_dir", audio_dir, "--coeffs_dir", coeffs_dir, "--batch_size", "8", "--seed",
+        "0", "--output_dir", out_dir, "--epochs", "1", "--save_period", "1", "--val_period", "1000", "--export_pth",
+        "", "--init_weights", snap], gpu_line)
+    with open(os.path.join(out_dir, "SAiD", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    print("metrics:", lines)
+    check(len(lines) == 1 and np.isfinite(lines[0]["Train/loss"]) and lines[0]["Train/nan_skipped"] == 0.0,
+          f"train from the snapshot: {lines}")
+    saved = torch.load(os.path.join(out_dir, "ckpt", "1", STATE_FILE), map_location="cpu", weights_only=True)
+    check(saved["step"] == 2, f"train from the snapshot ran {saved['step']} steps")
+    encoder_equal({k[len("audio_encoder."):]: v for k, v in saved["model"].items() if k.startswith("audio_encoder.")},
+                  "after 2 train steps")
+    print("after 2 train steps the frozen encoder is still bit-equal to the snapshot")
+
+
 def main():
     os.makedirs(WORK, exist_ok=True)
     print("== phase 1: environment and build ==")
@@ -1580,6 +1958,10 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     print(f"nvcc build of said_tpu_torch/csrc: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qp_native.load()  # raises with g++'s output if the build fails
+    print(f"g++ build of said_tpu_torch/optimize/csrc/qp_solver.cpp: {time.perf_counter() - t0:.1f} s "
+          f"({qp_native.library_path().relative_to(REPO)})")
     configure_precision("float32")
     t0 = time.perf_counter()
     x, w, b = randn((2, 8, 192), 0), randn((192,), 0), randn((192,), 0)
@@ -1620,6 +2002,9 @@ def main():
     phase_layer_feature_norm()
     phase_vae_train_step()
     phase_vae_clis(gpu_line)
+    blend = phase_pseudo_gt(gpu_line)
+    phase_render(record, gpu_line, blend)
+    phase_hf_snapshot(gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)

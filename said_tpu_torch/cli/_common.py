@@ -1,7 +1,7 @@
-"""Shared CLI plumbing: model construction, weights (SAiD's and the
-BCVAE's), precision; the CSV I/O of ``said_tpu_torch.utils.blendshape`` (a
-header of the 32 ARKit blendshape names, then one row per 60 fps frame;
-no pandas).
+"""Shared CLI plumbing: model construction, weights (SAiD's, an HF
+wav2vec2 snapshot's audio encoder, the BCVAE's), precision; the CSV I/O
+of ``said_tpu_torch.utils.blendshape`` (a header of the 32 ARKit
+blendshape names, then one row per 60 fps frame; no pandas).
 """
 
 from __future__ import annotations
@@ -22,11 +22,16 @@ from said_tpu_torch.utils.blendshape import (  # noqa: F401 (the CLIs' CSV I/O)
     save_blendshape_coeffs,
     save_blendshape_coeffs_image,
 )
+from said_tpu_torch.utils.hf_snapshot import load_snapshot, snapshot_file
 
 # The CSV header: the order of said_tpu/data/assets/ARKit_blendshapes.txt.
 ARKIT_BLENDSHAPES = tuple(BLENDSHAPE_CLASSES)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+ORBAX_REFUSAL = ("{path!r} is a directory without model.safetensors or pytorch_model.bin, so not an HF snapshot: "
+                 "an orbax checkpoint directory is a JAX checkpoint format, which said_tpu_torch does not read; "
+                 "export it to a reference-named .pth with said_tpu.core.checkpoint.export_said_to_torch")
 
 
 def str2bool(v) -> bool:
@@ -90,22 +95,57 @@ def random_init_(model: SAID, seed: int = 0) -> SAID:
     return model
 
 
-def load_said_weights(model: SAID, weights_path: Optional[str], seed: int = 0) -> SAID:
-    """Load a reference-named torch state_dict (``SAiD.pth``, or the JAX
-    package's ``export_said_to_torch`` output) with ``strict=True``; with an
-    empty path, random-initialise with :func:`random_init_`. A path that
-    names no file raises ``FileNotFoundError``."""
-    if not weights_path:
-        return random_init_(model, seed)
-    if not os.path.isfile(weights_path):
-        raise FileNotFoundError(f"weights file not found: {weights_path!r} (pass an empty path for random weights)")
-    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
-    # newer torch serialises weight norm through parametrizations
+def _torch_names(sd):
+    """Newer torch serialises weight norm through parametrizations; the
+    port's modules keep ``weight_g``/``weight_v``."""
     renamed = {}
     for k, v in sd.items():
         k = k.replace("parametrizations.weight.original0", "weight_g")
         renamed[k.replace("parametrizations.weight.original1", "weight_v")] = v
-    model.load_state_dict(renamed, strict=True)
+    return renamed
+
+
+def load_audio_encoder_snapshot(model: SAID, directory: str) -> None:
+    """Load the audio encoder from an HF wav2vec2 snapshot directory (names
+    with or without the ``wav2vec2.`` prefix; ``lm_head.*`` and other
+    extras are ignored). Every encoder tensor but ``masked_spec_embed``
+    must be there, with the model's shape."""
+    sd = load_snapshot(directory)
+    prefix = "wav2vec2." if any(k.startswith("wav2vec2.") for k in sd) else ""
+    sd = _torch_names({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
+    want = model.audio_encoder.state_dict()
+    missing = sorted(k for k in want if k not in sd and k != "masked_spec_embed")
+    if missing:
+        raise KeyError(f"HF snapshot {directory!r} lacks audio-encoder tensors {missing[:5]} "
+                       f"({len(missing)} in all)")
+    model.audio_encoder.load_state_dict({k: sd[k] for k in want if k in sd}, strict=False)
+
+
+def load_said_weights(model: SAID, weights_path: Optional[str], seed: int = 0) -> SAID:
+    """Weights for SAID, by what ``weights_path`` names:
+
+    - empty: random, by :func:`random_init_` from ``seed``;
+    - a file: a reference-named torch state_dict (``SAiD.pth``, or the JAX
+      package's ``export_said_to_torch`` output), loaded ``strict=True``;
+    - a directory with ``model.safetensors`` or ``pytorch_model.bin``: an HF
+      wav2vec2 snapshot (the reference's training init): the audio encoder
+      from it, the rest random from ``seed``.
+
+    Any other directory (an orbax checkpoint, a JAX format) raises
+    ``ValueError``; a path that names nothing raises ``FileNotFoundError``.
+    """
+    if not weights_path:
+        return random_init_(model, seed)
+    if os.path.isdir(weights_path):
+        if snapshot_file(weights_path) is None:
+            raise ValueError(ORBAX_REFUSAL.format(path=weights_path))
+        random_init_(model, seed)
+        load_audio_encoder_snapshot(model, weights_path)
+        return model
+    if not os.path.isfile(weights_path):
+        raise FileNotFoundError(f"weights file not found: {weights_path!r} (pass an empty path for random weights)")
+    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+    model.load_state_dict(_torch_names(sd), strict=True)
     return model
 
 

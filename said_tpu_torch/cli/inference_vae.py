@@ -3,7 +3,7 @@
 Flag-compatible with ``said_tpu/cli/inference_vae.py`` (the reference's
 ``script/inference_vae.py``): the first 120 frames are encoded and
 decoded (``--use_noise true`` samples the latent, from ``--seed``) and
-written as a CSV (+ a PNG with ``--save_image``, which needs PIL).
+written as a CSV (+ a PNG with ``--save_image``, from the port's own writer).
 ``--device`` defaults to ``cuda``; path defaults stay in the working
 directory, and without ``--weights_path`` the VAE is random from
 ``--seed``. ``--compilation_cache_dir`` is TPU-only and not carried over.

@@ -20,11 +20,13 @@ twins. Unlike the JAX CLI's, whose path defaults point into
 ``../BlendVOCA`` and ``../output``, no path default here leaves the
 working directory: ``--audio_dir`` and ``--coeffs_dir`` are required and
 ``--output_dir`` defaults to ``output``. ``--dtype bfloat16`` computes in bf16 with float32 parameters,
-optimizer and EMA. ``--init_weights`` takes a reference-named ``.pth``;
-without it the weights are random from ``--seed``. Not ported: sharding
-over several cards (``--mesh_data``/``--mesh_model``/``--mesh_seq`` > 1)
-and ``--init_weights`` from a directory (an HF snapshot or an orbax
-checkpoint).
+optimizer and EMA. ``--init_weights`` takes a reference-named ``.pth``,
+or an HF wav2vec2 snapshot directory (``model.safetensors`` or
+``pytorch_model.bin``: the reference's init, the audio encoder from the
+snapshot and the rest random from ``--seed``); without it the weights are
+random from ``--seed``. An orbax checkpoint directory (a JAX format) is
+refused. Not ported: sharding over several cards
+(``--mesh_data``/``--mesh_model``/``--mesh_seq`` > 1).
 
     python -m said_tpu_torch.cli.train --audio_dir BlendVOCA/audio \\
         --coeffs_dir BlendVOCA/blendshape_coeffs --output_dir output
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from said_tpu_torch.cli._common import (
+    ORBAX_REFUSAL,
     build_said_model,
     configure_precision,
     load_blendshape_coeffs,
@@ -54,6 +57,7 @@ from said_tpu_torch.diffusion.schedule import DiffusionSchedule
 from said_tpu_torch.models.said import process_audio
 from said_tpu_torch.models.wav2vec2 import compute_time_mask_indices
 from said_tpu_torch.train.said_train import TrainConfig, TrainState, eval_step, train_step
+from said_tpu_torch.utils.hf_snapshot import snapshot_file
 
 SR, FPS = 16000, 60
 
@@ -90,7 +94,8 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--mesh_data", type=int, default=-1)
     parser.add_argument("--mesh_model", type=int, default=1)
     parser.add_argument("--mesh_seq", type=int, default=1)
-    parser.add_argument("--init_weights", type=str, default="", help="optional reference-named .pth")
+    parser.add_argument("--init_weights", type=str, default="",
+                        help="optional reference-named .pth, or an HF wav2vec2 snapshot directory")
     parser.add_argument("--resume", type=str, default="", help="a checkpoint directory <output_dir>/ckpt/<epoch>")
     parser.add_argument("--export_pth", type=str2bool, default=True)
     parser.add_argument("--spec_augment", type=str2bool, default=True,
@@ -108,9 +113,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, flag) > 1:
             raise SystemExit(f"--{flag} > 1 is not ported to said_tpu_torch yet: "
                              "ROADMAP Queue 1 item 13 (multi-GPU, data- and sequence-parallel training)")
-    if args.init_weights and os.path.isdir(args.init_weights):
-        raise SystemExit("--init_weights from a directory (HF snapshot, orbax checkpoint) is not ported to "
-                         "said_tpu_torch; pass a reference-named .pth")
+    if args.init_weights and os.path.isdir(args.init_weights) and snapshot_file(args.init_weights) is None:
+        raise SystemExit("--init_weights " + ORBAX_REFUSAL.format(path=args.init_weights))
 
 
 def _bucket_up(window_size: int, bucket: int) -> int:

@@ -16,7 +16,8 @@ lacks). Behaviour, from the reference's ``script/dataset/dataset_voca.py``:
   mirror pairs' columns, an optional zero-out;
 - the evaluation sets: the test split's generated or real CSVs with their
   person and sentence (``BlendVOCAEvalDataset``), and the coefficient-only
-  120-frame windows the BCVAE trains on (``BlendVOCAVAEDataset``).
+  120-frame windows the BCVAE trains on (``BlendVOCAVAEDataset``);
+- the pseudo-GT optimizer's meshes (``BlendVOCAPseudoGTOptDataset``).
 
 All host-side numpy with one ``np.random.Generator`` a dataset, drawn in
 the JAX package's order, so the same seed gives the same batches bit for
@@ -26,6 +27,7 @@ bit.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -34,6 +36,7 @@ import numpy as np
 
 from said_tpu_torch.utils.audio import load_audio
 from said_tpu_torch.utils.blendshape import load_blendshape_coeffs, load_blendshape_deltas
+from said_tpu_torch.utils.mesh import Mesh, load_mesh
 
 PERSON_IDS_TRAIN = [
     "FaceTalk_170725_00137_TA",
@@ -424,3 +427,30 @@ class BlendVOCAVAEDataset:
     def collate_fn(items: List[DataItem]) -> DataBatch:
         return DataBatch(waveform=[], blendshape_coeffs=np.stack([it.blendshape_coeffs for it in items]),
                          cond=np.array([it.cond for it in items], dtype=bool))
+
+
+class BlendVOCAPseudoGTOptDataset:
+    """What the pseudo-GT QP reads: each person's neutral and blendshape
+    meshes (``<neutrals_dir>/<person>.obj``,
+    ``<blendshapes_dir>/<person>/<name>.obj``) and each sentence's mesh
+    sequence (every ``.obj`` and ``.ply`` under
+    ``<mesh_seqs_dir>/<person>/sentenceXX``, in sorted path order)."""
+
+    def __init__(self, neutrals_dir: str, blendshapes_dir: str, mesh_seqs_dir: str, blendshapes_names: List[str]):
+        self.neutrals_dir = neutrals_dir
+        self.blendshapes_dir = blendshapes_dir
+        self.mesh_seqs_dir = mesh_seqs_dir
+        self.blendshapes_names = blendshapes_names
+
+    def get_blendshapes(self, person_id: str) -> Tuple[Mesh, Dict[str, Mesh]]:
+        neutral = load_mesh(os.path.join(self.neutrals_dir, f"{person_id}.obj"))
+        bl_dir = os.path.join(self.blendshapes_dir, person_id)
+        return neutral, {name: load_mesh(os.path.join(bl_dir, f"{name}.obj")) for name in self.blendshapes_names}
+
+    def get_mesh_seq(self, person_id: str, seq_id: int) -> List[Mesh]:
+        seq_dir = os.path.join(self.mesh_seqs_dir, person_id, f"sentence{seq_id:02}")
+        if not os.path.isdir(seq_dir):
+            return []
+        files = sorted(glob.glob(os.path.join(seq_dir, "**/*.obj"), recursive=True)
+                       + glob.glob(os.path.join(seq_dir, "**/*.ply"), recursive=True))
+        return [load_mesh(p) for p in files]

@@ -3,23 +3,31 @@
 The reference's CSV schema (``said/util/blendshape.py:36-70``): a header
 of the 32 ARKit blendshape names, one row per 60 fps frame. Written and
 read with the ``csv`` module (the machine with the card has no pandas);
-the JAX package's ``said_tpu.utils.blendshape`` reads with pandas.
+the JAX package's ``said_tpu.utils.blendshape`` reads with pandas. The
+coefficient image is a PNG from the port's own writer (no PIL).
 """
 
 from __future__ import annotations
 
 import csv
 import pickle
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from said_tpu_torch.utils.png import write_png
+
+
+def load_blendshape_coeffs_columns(coeffs_path: str) -> Tuple[np.ndarray, List[str]]:
+    """CSV (header + one row per frame) → ((T, C) float32, column names)."""
+    with open(coeffs_path, newline="") as f:
+        header, *rows = list(csv.reader(f))
+    return np.asarray(rows, dtype=np.float32).reshape(len(rows), len(header)), header
 
 
 def load_blendshape_coeffs(coeffs_path: str) -> np.ndarray:
     """CSV (header + one row per frame) → (T, C) float32 array."""
-    with open(coeffs_path, newline="") as f:
-        rows = list(csv.reader(f))[1:]
-    return np.asarray(rows, dtype=np.float32).reshape(len(rows), -1)
+    return load_blendshape_coeffs_columns(coeffs_path)[0]
 
 
 def save_blendshape_coeffs(coeffs: np.ndarray, classes: Sequence[str], output_path: str) -> None:
@@ -33,11 +41,9 @@ def save_blendshape_coeffs(coeffs: np.ndarray, classes: Sequence[str], output_pa
 
 
 def save_blendshape_coeffs_image(coeffs: np.ndarray, output_path: str) -> None:
-    """(T, C) coefficients → grayscale PNG (classes × frames)."""
-    from PIL import Image
-
-    orig = (255 * np.asarray(coeffs).T).round()
-    Image.fromarray(orig).convert("L").save(output_path)
+    """(T, C) coefficients → grayscale PNG (classes × frames), each value
+    255·c rounded and clipped to [0, 255]."""
+    write_png(output_path, np.clip((255 * np.asarray(coeffs).T).round(), 0, 255).astype(np.uint8))
 
 
 def load_blendshape_deltas(path: str) -> Dict[str, Dict[str, np.ndarray]]:

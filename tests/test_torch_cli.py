@@ -24,7 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from said_tpu_torch.cli import inference, test_inference
+from said_tpu_torch.cli import (
+    inference,
+    optimize_blendshape_coeffs,
+    preprocess_blendvoca,
+    render,
+    test_inference,
+    test_render,
+)
 from said_tpu_torch.cli._common import (
     ARKIT_BLENDSHAPES,
     load_blendshape_coeffs,
@@ -317,25 +324,58 @@ def test_audio_io_matches_the_jax_package(tmp_path, sr, channels, dtype):
         np.testing.assert_array_equal(fg.waveform, fw.waveform)
 
 
+def _imports(*modules):
+    """An import statement of any of ``modules`` (or of a submodule), at
+    any indent; a comment or a string that names one does not match."""
+    names = "|".join(map(re.escape, modules))
+    return re.compile(rf"^\s*(from|import)\s+({names})(\.|\s|,|$)", re.M)
+
+
 def test_port_imports_nothing_of_the_jax_package():
-    sources = [*(REPO / "said_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
-    pattern = re.compile(r"^\s*(from|import)\s+said_tpu(\.|\s|$)", re.M)
+    """Nor jax, flax, pandas, sklearn or safetensors (the machine with the
+    card has none), anywhere in the port or ``chip_smoke.py``; nor PIL in
+    the render and asset paths."""
+    port = REPO / "said_tpu_torch"
+    sources = [*port.rglob("*.py"), REPO / "chip_smoke.py"]
+    pattern = _imports("said_tpu", "jax", "flax", "pandas", "sklearn", "safetensors")
     for path in sources:
         assert not pattern.search(path.read_text()), path
+    no_pil = [*(port / "render").rglob("*.py"), port / "utils" / "blendshape.py", port / "utils" / "png.py",
+              *(port / "cli" / f"{name}.py" for name in ("preprocess_blendvoca", "optimize_blendshape_coeffs",
+                                                          "render", "test_render"))]
+    for path in no_pil:
+        assert path.is_file() and not _imports("PIL").search(path.read_text()), path
+    assert _imports("jax").search("x = 1\n    import jax.numpy as jnp\n")
+    assert _imports("PIL").search("from PIL import Image")
+    assert not _imports("jax", "said_tpu").search("# jax and said_tpu are not imported\nimport said_tpu_torch\n")
 
 
 @pytest.mark.parametrize("cli,names", [
     (inference, ("weights_path", "audio_path", "output_path", "output_image_path", "intermediate_dir")),
     (test_inference, ("weights_path", "audio_dir", "output_dir")),
-], ids=["inference", "test_inference"])
+    (preprocess_blendvoca, ("templates_dir", "blendshape_deltas_path", "blendshapes_out_dir", "neutrals_dir",
+                            "blendshapes_dir")),
+    (optimize_blendshape_coeffs, ("neutrals_dir", "blendshapes_dir", "mesh_seqs_dir", "output_dir")),
+    (render, ("neutral_path", "blendshapes_dir", "audio_path", "blendshape_coeffs_path", "output_images_dir",
+              "output_path")),
+    (test_render, ("audio_dir", "coeffs_dir", "neutrals_dir", "blendshapes_dir", "output_dir")),
+], ids=["inference", "test_inference", "preprocess_blendvoca", "optimize_blendshape_coeffs", "render",
+        "test_render"])
 def test_defaults_stay_in_the_working_directory(cli, names):
+    """(the asset tables' defaults are the port's own files)"""
     parser = argparse.ArgumentParser()
     cli.add_arguments(parser)
     args = parser.parse_args([])
     for name in names:
         value = getattr(args, name)
         assert ".." not in value and not os.path.isabs(value), (name, value)
-    assert args.weights_path == "" and args.device == "cuda"
+    for name in ("blendshape_list_path", "head_idx_path"):
+        if hasattr(args, name):
+            assert os.path.isfile(getattr(args, name)) and "said_tpu_torch" in getattr(args, name), name
+    if hasattr(args, "weights_path"):
+        assert args.weights_path == ""
+    if hasattr(args, "device"):
+        assert args.device == "cuda"
 
 
 def test_audio_path_is_required(capsys):
