@@ -204,6 +204,36 @@ Phases (any failure exits non-zero; there is no try/except around them):
     bit-equal to the snapshot's; two train-CLI steps from it (phase 15's
     tree) end with a finite loss and the frozen encoder still bit-equal.
 
+24. Data-parallel training. (a) ``torch.distributed.run --nproc_per_node
+    1`` (NCCL) of the train CLI with ``--mesh_data 1``, phase 15's f32 flags
+    for 2 epochs: its ``2.pth`` bit-identical to phase 15's. (b) Two ranks
+    sharing cuda:0 over gloo (NCCL takes one rank a card), one full-width
+    train step (f32, train mode) at profile_train's batch of 8 × 300 frames,
+    4 rows a rank, against one process on the 8: the loss within 1e-6
+    relative, each gradient the optimizer receives (all-reduced, before the
+    clip) within 1e-5 relative L2, parameters and EMA identical on both
+    ranks after the step.
+25. Sequence-parallel serving: two ranks sharing cuda:0 over gloo, the
+    full-width SAID (random weights) on a 60-s clip (3600 frames, 1800 a
+    rank), 1 and 20 DDIM and 25 DPM++ steps, CFG 2.0, injected latents,
+    against the unsharded card run: MAE ≤ 1e-4, and max ≤ 1e-4 after one
+    step; after 20 and 25 max ≤ 1e-3, or twice the deviation of the
+    unsharded run with its GroupNorms moved to the split (measured in the
+    same run; the chain amplifies a kernel's rounding, see SP_BOUND) where
+    that is larger; the ranks' results identical; launches summed over the
+    ranks exactly 2 × (flash 4 a step
+    + the encoder's 12, the split GroupNorm's stats and apply 15 a step
+    each, conv_0's GroupNorm 1, which takes the split; LayerNorm, GEGLU and
+    the conv as phase 7), so the one-launch GroupNorm never runs on the
+    sharded route; each request's wall time and share in collectives
+    (the card synchronised around each ``all_gather``), labelled as two
+    ranks sharing one card: a numerics check, not a speed figure; a
+    ``{"sequence_parallel": ...}`` JSON line. Phase 2 holds K1 at the
+    shard shape (2,1800,6×32) against (2,3600,6×32) keys, beside SDPA, and
+    the split's stats and apply wrappers at (2,1800,192) with two shards'
+    partials built in one process, against their twins and, joined,
+    against the unsharded GroupNorm.
+
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` on the card alone, GEGLU's
@@ -214,6 +244,7 @@ one) and
 the repository beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -258,6 +289,21 @@ BF16_BOUND = {"audio embedding": 5e-2, "denoiser output": 3e-2}
 # max |reference|
 LONG_BOUND = 1e-4
 SR, FPS = 16000, 60
+# sequence-parallel serving (phases 2 and 25): a 60-s clip on two ranks
+SP_FRAMES = 60 * FPS
+# sequence-parallel against the unsharded card run (phase 25): phase 4's
+# bounds. A random-weight chain amplifies rounding: on an H100 the
+# unsharded 60-s, 20-step DDIM run moved by max 1.23e-3 (MAE 8.1e-6) when
+# only its GroupNorm kernel changed (one launch -> the split), at the same
+# frames (~820-830) where the sharded run differed by 1.70e-3 (MAE
+# 8.2e-6), and by 6e-8 after 1 step. So the max bound is phase 4's or
+# SP_FLOOR_FACTOR times that swap's deviation, measured in the same run,
+# whichever is larger; the MAE bound stays as it is.
+SP_BOUND = {"mae": 1e-4, "max": 1e-3}
+SP_FLOOR_FACTOR = 2.0
+# data-parallel training on two ranks against one (phase 24b), as the CPU
+# test holds it: the loss relative, each gradient relative L2
+DP_BOUND = {"loss": 1e-6, "grad": 1e-5}
 # conv_0's output of a 10-s clip, where a "layer" feature extractor runs K7
 LAYER_FEATURE_NORM_SHAPE = (1, 31999, 512)
 # the BCVAE train step, card against CPU (phase 19), f32 with TF32 off:
@@ -288,6 +334,12 @@ KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file
                           "said_tpu/ops/pallas_conv.py:133", "strided_conv_gelu_pallas"),
     "flash_attention": (attention.flash_attention_kernel, "cuda", "said_tpu_torch/csrc/flash_attention.cu",
                         "said_tpu/ops/pallas_attention.py:186", "_flash_tpu_packed"),
+    # the frame-sharded GroupNorm of sequence-parallel serving: the split's
+    # two stages as two wrappers, the statistics joined across ranks between
+    "group_norm_stats": (norms.group_norm_stats_kernel, "triton", "said_tpu_torch/ops/norms.py",
+                         "said_tpu/ops/pallas_norms.py:249", "group_norm_pallas_blocked (stats phase, :284)"),
+    "group_norm_apply": (norms.group_norm_apply_kernel, "triton", "said_tpu_torch/ops/norms.py",
+                         "said_tpu/ops/pallas_norms.py:249", "group_norm_pallas_blocked (apply phase, :312)"),
 }
 ALSO_REPLACES = {
     "group_norm": "said_tpu/ops/pallas_norms.py:249 (group_norm_pallas_blocked)",
@@ -501,7 +553,58 @@ def kernel_cases():
             work = {"bytes": 4 * b * t * h * d * isz, "product_flop": 4 * pairs * d, "exp2": pairs}
             label = f"{tag} ({b}, {t}, {h}x{d})" + ("" if lengths is None else f" lengths {lengths}")
             cases.append(("flash_attention", label, dt, fns, work, tag if i == 0 else None))
+        cases += sequence_parallel_cases(dt, tag, isz)
     return cases
+
+
+def sequence_parallel_cases(dt, tag, isz):
+    """Phase 2's cases of sequence-parallel serving, a 60-s clip on two
+    ranks (phase 25): K1 at a rank's shard, its 1800 queries against the
+    gathered 3600 keys and values (the UNet's 6x32); and the frame-sharded
+    GroupNorm's two stages at a rank's (2, 1800, 192), with both shards'
+    partials built here in one process."""
+    b, tq, s, h, d = 2, SP_FRAMES // 2, SP_FRAMES, 6, 32
+    q = randn((b, tq, h * d), 50, dt)
+    k, v = randn((b, s, h * d), 51, dt), randn((b, s, h * d), 52, dt)
+    fns = {"kernel": lambda: attention.flash_attention_kernel(q, k, v, h),
+           "plain": lambda: attention.flash_attention_plain(q, k, v, h), "library": sdpa_thunk(q, k, v, h, None)}
+    pairs = h * b * tq * s
+    work = {"bytes": (2 * tq + 2 * s) * b * h * d * isz, "product_flop": 4 * pairs * d, "exp2": pairs}
+    cases = [("flash_attention", f"{tag} SP shard q ({b}, {tq}, {h}x{d}) k/v ({b}, {s}, {h}x{d})", dt, fns, work,
+              f"sp {tag}")]
+    x = randn((b, SP_FRAMES, 192), 53, dt, 2.0, 30.0)
+    x0, x1 = (part.contiguous() for part in x.chunk(2, dim=1))
+    w, bias = randn((192,), 54), randn((192,), 55)
+    plan = norms.split_plan(b, tq, 192, 32)
+    n = b * tq * 192
+    fns = {"kernel": lambda: norms.group_norm_stats_kernel(x0, 32),
+           "plain": lambda: norms.group_norm_partials_plain(x0, 32, plan.frames)}
+    parts_bytes = 3 * b * 32 * plan.chunks * 4
+    cases.append(("group_norm_stats", f"{tag} ({b}, {tq}, 192) G=32 [{plan.chunks} chunks of {plan.frames}]", dt,
+                  fns, {"bytes": n * isz + parts_bytes, "flop": 4 * n}, tag))
+    parts = torch.cat([norms.group_norm_stats_kernel(x0, 32), norms.group_norm_stats_kernel(x1, 32)], dim=3)
+    fns = {"kernel": lambda: norms.group_norm_apply_kernel(x0, 32, w, bias, parts, 1e-6),
+           "plain": lambda: norms.group_norm_join_plain(x0, 32, w, bias, parts, 1e-6)}
+    cases.append(("group_norm_apply", f"{tag} ({b}, {tq}, 192) G=32, 2 shards' {parts.shape[3]} partials", dt, fns,
+                  {"bytes": 2 * n * isz + 2 * parts_bytes + 8 * 192, "flop": 10 * n}, tag))
+    return cases
+
+
+def check_sharded_group_norm():
+    """Phase 2: the two shards' applies joined against the unsharded
+    GroupNorm of the whole (2, 3600, 192), within phase 2's bounds."""
+    for dt in (torch.float32, torch.bfloat16):
+        x = randn((2, SP_FRAMES, 192), 53, dt, 2.0, 30.0)
+        w, b = randn((192,), 54), randn((192,), 55)
+        shards = [part.contiguous() for part in x.chunk(2, dim=1)]
+        parts = torch.cat([norms.group_norm_stats_kernel(xs, 32) for xs in shards], dim=3)
+        got = torch.cat([norms.group_norm_apply_kernel(xs, 32, w, b, parts, 1e-6) for xs in shards], dim=1)
+        want = norms.group_norm_plain(x, 32, w, b, 1e-6)
+        err = (got.float() - want.float()).abs().max().item()
+        limit = BOUND[dt] * want.float().abs().max().item()
+        print(f"frame-sharded GroupNorm, 2 shards joined, against the unsharded twin of {tuple(x.shape)} {dt}: "
+              f"max abs err {err:.3e} limit {limit:.3e}")
+        check(err <= limit, f"frame-sharded GroupNorm {dt}: {err} > {limit}")
 
 
 def ln_plans(rows, c, dtype):
@@ -557,11 +660,12 @@ def sdpa_thunk(q, k, v, h, lengths):
     NaN there, not zeros; only its time is used)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    b, t, inner = q.shape
-    qh, kh, vh = (x.view(b, t, h, inner // h).transpose(1, 2) for x in (q, k, v))
+    b, _, inner = q.shape
+    qh, kh, vh = (x.view(b, x.shape[1], h, inner // h).transpose(1, 2) for x in (q, k, v))
     mask = None
     if lengths is not None:
-        mask = (torch.arange(t, device=DEV)[None, :] < torch.tensor(lengths, device=DEV)[:, None])[:, None, None, :]
+        s = k.shape[1]
+        mask = (torch.arange(s, device=DEV)[None, :] < torch.tensor(lengths, device=DEV)[:, None])[:, None, None, :]
 
     def run():
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
@@ -575,7 +679,8 @@ def phase_kernels(record):
     for name, label, dt, fns, work, headline in kernel_cases():
         got, ref = fns["kernel"](), fns["plain"]()
         torch.cuda.synchronize()
-        check(got.dtype == dt and ref.dtype == dt and got.shape == ref.shape,
+        out_dt = torch.float32 if name == "group_norm_stats" else dt  # the partials are f32
+        check(got.dtype == out_dt and ref.dtype == out_dt and got.shape == ref.shape,
               f"{name} {label}: dtype/shape differ from the twin")
         err = (got.float() - ref.float()).abs().max().item()
         limit = BOUND[dt] * ref.float().abs().max().item()
@@ -650,7 +755,7 @@ def expected_launches(steps, bucketed=False, calls=1):
     norm = 15 * steps + 1
     per_call = {"group_norm": 0 if bucketed else norm, "group_norm_masked": norm if bucketed else 0,
                 "layer_norm": 12 * steps + 26, "geglu_ffn": 4 * steps, "strided_conv_gelu": 6,
-                "flash_attention": 4 * steps + 12}
+                "flash_attention": 4 * steps + 12, "group_norm_stats": 0, "group_norm_apply": 0}
     return {name: calls * n for name, n in per_call.items()}
 
 
@@ -1656,31 +1761,55 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def admm_launches(gram, q):
+def admm_launches(gram, q, pairs=3, tries=12):
     """Kernel launches and device µs an ADMM iteration on the card, from
     two runs under ``torch.profiler`` (CUDA activity) that never stop early
     (tol < 0) and never read the stop flag: 16 and 48 iterations, so the
     set-up and the result's copy cancel. Copies, memsets and the
-    profiler's own buffer events are not launches."""
+    profiler's own buffer events are not launches. The median of
+    ``pairs`` whole pairs. A pair is whole when every kernel's count in
+    the 48-iteration record exceeds its count in the 16-iteration record
+    by a multiple of 32 (0 included): both runs make the same set-up
+    launches, so a record that lacks some of them was torn by the
+    profiler, not by the ADMM (one H100 run read 10 pairs at T=240 of
+    which one had 5-7 fewer of each set-up kernel in its 48-iteration
+    record, 1317 launches where the others read 1376 = 43 x 32). Torn
+    pairs are read again, up to ``tries`` times; an ADMM whose launches
+    vary between iterations tears every pair and fails."""
+    import collections
+
     from torch.profiler import ProfilerActivity, profile
 
     from said_tpu_torch.optimize.qp import admm_sequence_qp
 
-    def run(n):
-        return admm_sequence_qp(gram, q, DELTA, max_iters=n, tol=-1.0, device=DEV, check_every=10**6)
-
-    run(16)  # the caching allocator's blocks for this T
-    kernels = {}
-    for n in (16, 48):
+    def record(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(n)
             torch.cuda.synchronize()
-        kernels[n] = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer"))]
-    launches = (len(kernels[48]) - len(kernels[16])) / 32
-    busy_us = (sum(e.time_range.elapsed_us() for e in kernels[48])
-               - sum(e.time_range.elapsed_us() for e in kernels[16])) / 32
-    return launches, busy_us
+            admm_sequence_qp(gram, q, DELTA, max_iters=n, tol=-1.0, device=DEV, check_every=10**6)
+            torch.cuda.synchronize()
+        counts, busy = collections.Counter(), 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer")):
+                counts[e.name] += 1
+                busy += e.time_range.elapsed_us()
+        return counts, busy
+
+    record(16)  # the caching allocator's blocks for this T
+    reads, torn = [], 0
+    while len(reads) < pairs and torn < tries:
+        (few, few_us), (many, many_us) = record(16), record(48)
+        extra = {name: many[name] - few[name] for name in few.keys() | many.keys()}
+        if any(n < 0 or n % 32 for n in extra.values()):
+            torn += 1
+            print(f"ADMM launch record torn, read again: kernels whose 48 - 16 iteration counts are no multiple "
+                  f"of 32: {sorted((k[:40], n) for k, n in extra.items() if n < 0 or n % 32)}")
+            continue
+        reads.append((sum(extra.values()) / 32, (many_us - few_us) / 32))
+    check(len(reads) == pairs, f"ADMM launches an iteration: {torn} torn records, {len(reads)} of {pairs} whole pairs")
+    if len({launches for launches, _ in reads}) > 1:
+        print(f"ADMM launches an iteration, pair by pair: {[launches for launches, _ in reads]}")
+    return float(np.median([r[0] for r in reads])), float(np.median([r[1] for r in reads]))
 
 
 def phase_pseudo_gt(gpu_line):
@@ -1946,6 +2075,251 @@ def phase_hf_snapshot(gpu_line):
     print("after 2 train steps the frozen encoder is still bit-equal to the snapshot")
 
 
+# ------------------------------------------------------------ parallel layer
+
+
+def run_ranks(args, label, timeout=900):
+    """``python -m torch.distributed.run --standalone`` with ``args``, from
+    the checkout, in a session of its own that is killed whole if the run
+    outlives ``timeout`` or this process stops; returns the wall seconds.
+    The ranks' output is printed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", *args]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    tail = "\n".join(line for line in out.splitlines() if "socket.cpp" not in line)[-3000:]
+    print(f"{label}: exit {proc.returncode} in {wall:.1f} s (process start, build and init included)\n{tail}")
+    check(proc.returncode == 0, f"{label}: the ranks exited with {proc.returncode}")
+    return wall
+
+
+def rank_main(kind, work):
+    """A rank of phase 24b ("dp") or 25 ("sp"): two ranks share cuda:0 over
+    gloo (NCCL takes one rank a card); its results go to
+    ``<work>/<kind>_rank<r>.pt``."""
+    from said_tpu_torch.parallel.mesh import maybe_init_distributed, shutdown
+
+    ctx = maybe_init_distributed("cuda", backend="gloo")
+    configure_precision("float32")
+    try:
+        out = {"dp": dp_rank, "sp": sp_rank}[kind](ctx, work)
+        torch.save(out, os.path.join(work, f"{kind}_rank{ctx.rank}.pt"))
+    finally:
+        shutdown(ctx)
+
+
+def dp_rank(ctx, work):
+    """Phase 24b on one rank: one full-width train step (f32, train mode)
+    on its rows of profile_train's batch of 8, then on rank 0 the same step
+    of one process on all 8 rows; the gradients the optimizer receives,
+    the loss, the parameters and EMA after the step, the launches."""
+    from said_tpu_torch import profile_train
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.parallel.mesh import MeshConfig, SlicedGenerator, make_mesh, rank_rows
+    from said_tpu_torch.train.said_train import train_step
+
+    data = make_mesh(MeshConfig(data=ctx.world), ctx).data
+    schedule = DiffusionSchedule.create(1000)
+    batch = profile_train.make_batch(ctx.device)
+    b = batch["waveform"].shape[0]
+    out = {}
+    for mode in ("dp", "one") if ctx.rank == 0 else ("dp",):
+        state, gen = profile_train.make_cell("float32", ctx.device)
+        seen = []
+        update = state.optimizer.update
+        state.optimizer.update = lambda grads: (seen.append([g.detach().cpu() for g in grads]), update(grads))[1]
+        zero_launches()
+        t0 = time.perf_counter()
+        if mode == "dp":
+            rows = rank_rows(b, data.size, data.index)
+            local = {k: v[rows] if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+            metrics = train_step(state, schedule, dict(local, global_batch=b), SlicedGenerator(gen, 0, rows, b),
+                                 data.group)
+        else:
+            metrics = train_step(state, schedule, batch, gen)
+        torch.cuda.synchronize()
+        out[mode] = {"loss": metrics["loss"], "nan_skipped": metrics["nan_skipped"], "ms": 1e3 * (
+            time.perf_counter() - t0), "launches": read_launches(), "grads": dict(zip(state.params, seen[0])),
+            "params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "ema": {n: e.cpu() for n, e in state.ema.items()}}
+        del state
+    return out
+
+
+def sp_rank(ctx, work):
+    """Phase 25 on one rank: the full-width SAID (random weights, seed 0) on
+    the 60-s clip with injected latents, 20 DDIM and 25 DPM++ steps, CFG
+    2.0, frame-sharded over the two ranks; each request's result, wall
+    time, launches and collectives (timed: the card synchronised around
+    each); then on rank 0 the same requests unsharded."""
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from said_tpu_torch.utils.audio import load_audio
+
+    seq = make_mesh(MeshConfig(data=1, seq=ctx.world), ctx).seq
+    seq.timed = True
+    pipe = SAIDPipeline(random_init_(build_said_model(), seed=0).to(ctx.device).eval())
+    wave = process_audio(load_audio(os.path.join(work, "clip60s.wav"), SR))
+    latents = np.random.default_rng(7).standard_normal((1, SP_FRAMES, 32)).astype(np.float32)
+    out = {}
+    for solver, steps in SP_REQUESTS:
+        for run in ("sharded", "unsharded", "unsharded, split GroupNorm") if ctx.rank == 0 else ("sharded",):
+            seq.calls, seq.seconds = 0, 0.0
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with split_group_norm(run.endswith("split GroupNorm")):
+                res = pipe.inference(wave, num_inference_steps=steps, guidance_scale=2.0, solver=solver,
+                                     latents=latents, seq_group=seq if run == "sharded" else None).result
+            torch.cuda.synchronize()
+            out[(solver, steps, run)] = {"result": res, "wall": time.perf_counter() - t0, "launches": read_launches(),
+                                  "collective_s": seq.seconds, "collectives": seq.calls}
+    return out
+
+
+@contextlib.contextmanager
+def split_group_norm(on):
+    """With ``on``, every GroupNorm of the unsharded run takes the split (the
+    sharded route's kernels) in place of the one-launch kernel: the same
+    function by another correct kernel, a measure of how far the chain
+    moves the result for a kernel's rounding."""
+    if not on:
+        yield
+        return
+    saved = norms._SPLIT_MIN_T
+    norms._SPLIT_MIN_T = 0
+    norms.group_norm_plan.cache_clear()
+    try:
+        yield
+    finally:
+        norms._SPLIT_MIN_T = saved
+        norms.group_norm_plan.cache_clear()
+
+
+# one step first: before the chain amplifies anything, the sharded run is
+# held to LONG_BOUND (one denoiser call, card against card)
+SP_REQUESTS = (("ddim", 1), ("ddim", 20), ("dpmpp_2m", 25))
+
+
+def phase_data_parallel(record, gpu_line):
+    print("\n== phase 24: data-parallel training: (a) torch.distributed.run --nproc_per_node 1 (NCCL) of the train "
+          "CLI against phase 15's single process; (b) two ranks sharing cuda:0 over gloo, one full-width step at "
+          "batch 8 of 300-frame windows, against one process ==")
+    root = os.path.join(WORK, "train_tree")
+    out_dir = os.path.join(WORK, "train_out_nccl1")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # phase 15's f32 run to its epoch-2 export: same flags, 2 epochs
+    run_ranks(["--nproc_per_node", "1", "-m", "said_tpu_torch.cli.train", "--device", "cuda", "--audio_dir",
+               os.path.join(root, "audio"), "--coeffs_dir", os.path.join(root, "coeffs"), "--batch_size", "8",
+               "--seed", "0", "--val_repeat", "1", "--output_dir", out_dir, "--dtype", "float32", "--epochs", "2",
+               "--save_period", "2", "--val_period", "4", "--mesh_data", "1"], "24a: NCCL, one rank, 2 epochs")
+    got = torch.load(os.path.join(out_dir, "2.pth"), weights_only=True)
+    want = torch.load(os.path.join(WORK, "train_out", "2.pth"), weights_only=True)
+    same = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    print(f"24a: 2.pth of the one-rank NCCL run {'bit-identical' if same else 'DIFFERS'} to phase 15's "
+          f"({len(want)} tensors)")
+    check(same, "the one-rank NCCL train run's 2.pth is not bit-identical to phase 15's")
+    data_parallel_step(gpu_line)
+
+
+def data_parallel_step(gpu_line):
+    """Phase 24b: two ranks over gloo on one card against one process."""
+    work = os.path.join(WORK, "dp")
+    os.makedirs(work, exist_ok=True)
+    wall = run_ranks(["--nproc_per_node", "2", os.path.join(REPO, "chip_smoke.py"), "--rank", "dp", work],
+                     "24b: two ranks over gloo on one card")
+    r0, r1 = (torch.load(os.path.join(work, f"dp_rank{r}.pt"), weights_only=False) for r in range(2))
+    dp, one = r0["dp"], r0["one"]
+    loss_rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+    worst, nonzero = 0.0, 0
+    for name, want in one["grads"].items():
+        check(torch.equal(dp["grads"][name], r1["dp"]["grads"][name]), f"24b: ranks clip different gradients {name}")
+        scale = float(torch.linalg.vector_norm(want))
+        if scale > 0:
+            nonzero += 1
+            worst = max(worst, float(torch.linalg.vector_norm(dp["grads"][name] - want)) / scale)
+    identical = all(torch.equal(dp[key][n], r1["dp"][key][n]) for key in ("params", "ema") for n in dp[key])
+    launches = {k: dp["launches"][k] + r1["dp"]["launches"][k] for k in dp["launches"]}
+    print(f"24b: loss {dp['loss']:.7f} (one process {one['loss']:.7f}, relative {loss_rel:.2e}, bound "
+          f"{DP_BOUND['loss']:.0e}); worst gradient relative L2 {worst:.2e} over {nonzero} nonzero tensors (bound "
+          f"{DP_BOUND['grad']:.0e}); parameters and EMA identical on both ranks after the step: {identical}; "
+          f"launches summed over the ranks {launches} (one process {one['launches']}); step ms rank 0 "
+          f"{dp['ms']:.1f}, rank 1 {r1['dp']['ms']:.1f}, one process {one['ms']:.1f} (two ranks sharing one card "
+          f"over gloo: a numerics check, not a speed figure); run {wall:.1f} s on {gpu_line}")
+    check(dp["nan_skipped"] == 0.0 and np.isfinite(dp["loss"]) and loss_rel <= DP_BOUND["loss"],
+          f"24b: loss {dp['loss']} against {one['loss']}")
+    check(nonzero > 0.9 * len(one["grads"]) and worst <= DP_BOUND["grad"], f"24b: gradient relative L2 {worst}")
+    check(identical, "24b: the ranks' parameters or EMA differ after the step")
+    check(all(launches[k] > 0 for k in ("group_norm_masked", "layer_norm", "strided_conv_gelu")),
+          f"24b: a kernel of the training path was not launched: {launches}")
+
+
+def phase_sequence_parallel(record, gpu_line):
+    print(f"\n== phase 25: sequence-parallel serving, two ranks sharing cuda:0 over gloo: the full-width SAID "
+          f"(random weights) on a 60-s clip ({SP_FRAMES} frames, {SP_FRAMES // 2} a rank), "
+          f"{' and '.join(f'{n} {s}' for s, n in SP_REQUESTS)} steps, CFG 2.0, injected latents, against the "
+          f"unsharded card run ==")
+    work = os.path.join(WORK, "sp")
+    os.makedirs(work, exist_ok=True)
+    write_wav(os.path.join(work, "clip60s.wav"), 60.0, seed=2)
+    wall = run_ranks(["--nproc_per_node", "2", os.path.join(REPO, "chip_smoke.py"), "--rank", "sp", work],
+                     "25: two ranks over gloo on one card")
+    ranks = [torch.load(os.path.join(work, f"sp_rank{r}.pt"), weights_only=False) for r in range(2)]
+    conv0 = norms.group_norm_plan(1, (60 * SR - 10) // 5 + 1, 512, 512)
+    check(conv0.route == "triton", f"conv_0's GroupNorm plan at 60 s is {conv0}, not the split")
+    summary = {}
+    for solver, steps in SP_REQUESTS:
+        key = (solver, steps)
+        sp, one = ranks[0][key + ("sharded",)], ranks[0][key + ("unsharded",)]
+        split = ranks[0][key + ("unsharded, split GroupNorm",)]["result"]
+        check(np.array_equal(sp["result"], ranks[1][key + ("sharded",)]["result"]),
+              f"25 {solver}: the ranks' results differ")
+        res, ref = sp["result"], one["result"]
+        mae, mx = float(np.abs(res - ref).mean()), float(np.abs(res - ref).max())
+        floor = float(np.abs(split - ref).max())
+        max_bound = LONG_BOUND if steps == 1 else max(SP_BOUND["max"], SP_FLOOR_FACTOR * floor)
+        launches = {k: sum(r[key + ("sharded",)]["launches"][k] for r in ranks) for k in KERNELS}
+        per_rank = expected_launches(steps) | {"group_norm": 1, "group_norm_stats": 15 * steps,
+                                               "group_norm_apply": 15 * steps}
+        want = {k: 2 * n for k, n in per_rank.items()}
+        shares = [r[key + ("sharded",)]["collective_s"] / r[key + ("sharded",)]["wall"] for r in ranks]
+        print(f"25 {solver} {steps} steps: {res.shape[1]} rows, MAE {mae:.2e} max {mx:.2e} against the unsharded "
+              f"card run (bounds {SP_BOUND['mae']:.0e} and {max_bound:.2e}); the unsharded run with its GroupNorms "
+              f"on the split moves by max {floor:.2e}, MAE {float(np.abs(split - ref).mean()):.2e}; wall rank 0 "
+              f"{sp['wall']:.2f} s, rank 1 {ranks[1][key + ('sharded',)]['wall']:.2f} s, in collectives "
+              f"{shares[0]:.1%} / {shares[1]:.1%} "
+              f"({sp['collectives']} all_gathers a rank, the card synchronised around each); the unsharded "
+              f"request {one['wall']:.2f} s (two ranks sharing one card over gloo: a numerics check, not a speed "
+              f"figure) on {gpu_line}")
+        print(f"25 {solver} {steps} steps: launches summed over the ranks {launches}; conv_0's GroupNorm takes the split "
+              f"({conv0.chunks} chunks), the one-launch kernel never runs")
+        check(res.shape == (1, SP_FRAMES, 32) and np.isfinite(res).all() and res.min() >= 0.0 and res.max() <= 1.0,
+              f"25 {solver}: result {res.shape} not finite in [0, 1]")
+        check(res.std() > 1e-3 and mae <= SP_BOUND["mae"] and mx <= max_bound,
+              f"25 {solver}: MAE {mae} max {mx} (bound {max_bound}; std {res.std()})")
+        check(launches == want, f"25 {solver}: launch counts {launches} != {want}")
+        label = f"60s SP 2 ranks {steps} steps {solver}"
+        for name, n in launches.items():
+            record[name].setdefault("launches_by_request", {})[label] = n
+        if key == ("ddim", 20):
+            for name in ("group_norm_stats", "group_norm_apply"):
+                record[name]["launches"] = launches[name]
+            record["flash_attention"]["sp f32"]["launches"] = launches["flash_attention"]
+        summary[f"{solver} {steps}"] = {
+            "mae": mae, "max": mx, "max_bound": max_bound, "split_group_norm_max": floor,
+            "wall_s": [r[key + ("sharded",)]["wall"] for r in ranks], "collective_share": shares,
+            "collectives_per_rank": sp["collectives"], "unsharded_wall_s": one["wall"]}
+    print(json.dumps({"sequence_parallel": dict(summary, device=gpu_line, ranks=2, backend="gloo, one card shared",
+                                                frames=SP_FRAMES, run_s=wall)}))
+
+
 def main():
     os.makedirs(WORK, exist_ok=True)
     print("== phase 1: environment and build ==")
@@ -1981,6 +2355,7 @@ def main():
     for name, (route, src) in SPLIT_ROUTE.items():
         record[name].update(split_route=route, split_source=src)
     phase_kernels(record)
+    check_sharded_group_norm()
     phase_autograd()
     phase_request(record, gpu_line)
     model, wave, latents = phase_card_vs_cpu()
@@ -2006,6 +2381,9 @@ def main():
     phase_render(record, gpu_line, blend)
     phase_hf_snapshot(gpu_line)
 
+    phase_data_parallel(record, gpu_line)
+    phase_sequence_parallel(record, gpu_line)
+
     print("\nall phases passed")
     print(gpu_line)
     print(json.dumps({"kernels": list(record.values())}))
@@ -2014,4 +2392,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 24b or 25, started by torch.distributed.run
+        rank_main(sys.argv[2], sys.argv[3])
+    else:
+        main()

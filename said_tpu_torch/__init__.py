@@ -25,6 +25,9 @@ its layout and names so each counterpart is found where expected:
   validation, eval and VAE datasets and collates, the loader.
 - ``said_tpu_torch.utils``     — WAV loading, the UNet's waveform fitting,
   audio onsets, blendshape CSVs, the cyclical β schedule.
+- ``said_tpu_torch.parallel``  — the process mesh over ``torch.distributed``
+  (data-parallel training, sequence-parallel serving) and the frame-axis
+  collectives.
 - ``said_tpu_torch.cli``       — ``inference`` (WAV → ARKit CSV),
   ``test_inference`` (the eval protocol's generation), ``train``,
   ``train_vae``, ``inference_vae``, ``test_evaluate`` (the eval scores).

@@ -15,17 +15,25 @@ defaults point into ``../BlendVOCA``, every path default here lies in
 the working directory: ``--audio_path`` is required, and without
 ``--weights_path`` the weights are random from ``--seed``.
 
-Options of the JAX CLI that are not ported yet fail with an error naming
-the ROADMAP item; the TPU-only ``--denoise_chunk``,
-``--compilation_cache_dir`` and ``--profile_dir`` are not carried over.
+Sequence-parallel serving of one long clip over N cards: ``--seq_shards
+N`` under ``torchrun`` with N processes (in the JAX CLI, N local devices
+of one process): the clip is padded so that N divides its frames
+(``lcm(--divisor_unet, N)``), each rank runs the encoder and the denoise
+loop on its T/N frames (``--attn_impl`` auto or flash_sp: self-attention
+over gathered K/V), and rank 0 writes the outputs. ``--attn_impl
+flash_sp`` without ``--seq_shards`` takes the normal route. The TPU-only
+``--denoise_chunk``, ``--compilation_cache_dir`` and ``--profile_dir``
+are not carried over.
 
     python -m said_tpu_torch.cli.inference --weights_path SAiD.pth \\
         --audio_path speech.wav --output_path out.csv
+    torchrun --nproc_per_node 2 -m said_tpu_torch.cli.inference --seq_shards 2 --audio_path long.wav ...
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 
 import numpy as np
@@ -42,6 +50,7 @@ from said_tpu_torch.cli._common import (
     str2bool,
 )
 from said_tpu_torch.models.said import SAIDPipeline, process_audio
+from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh, maybe_init_distributed, shutdown
 from said_tpu_torch.utils.audio import fit_audio_unet, load_audio
 
 
@@ -98,35 +107,40 @@ def _refuse_with_streaming(args: argparse.Namespace) -> None:
         raise SystemExit("--strength is not supported with --streaming_window")
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    unported = [
-        (args.seq_shards > 1, "--seq_shards > 1", "ROADMAP Queue 1 item 13 (multi-GPU)"),
-        (args.attn_impl == "flash_sp", "--attn_impl flash_sp",
-         "ROADMAP Queue 1 item 13 (multi-GPU, sequence-parallel attention)"),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise SystemExit(f"{flag} is not ported to said_tpu_torch yet: {item}")
-
-
 def main(argv=None) -> np.ndarray:
-    """Run the CLI; returns the (frames, 32) coefficients it wrote."""
+    """Run the CLI; returns the (frames, 32) coefficients it wrote (every
+    rank returns them; rank 0 alone writes)."""
     parser = argparse.ArgumentParser(description="Inference the lipsync using the SAiD model (PyTorch/CUDA)")
     add_arguments(parser)
     args = parser.parse_args(argv)
     _refuse_with_streaming(args)
-    _refuse_unported(args)
+    if args.seq_shards > 1 and args.attn_impl not in ("auto", "flash_sp"):
+        raise SystemExit(f"--seq_shards requires the flash_sp attention partitioning rule; drop --attn_impl "
+                         f"{args.attn_impl} (or --seq_shards)")
+    ctx = maybe_init_distributed(args.device)
+    try:
+        return _infer(parser, args, ctx)
+    finally:
+        shutdown(ctx)
+
+
+def _infer(parser: argparse.ArgumentParser, args: argparse.Namespace, ctx) -> np.ndarray:
+    shards = max(args.seq_shards, 1)
+    if ctx.world != shards:
+        raise SystemExit(f"--seq_shards {args.seq_shards} runs under torchrun with as many processes; this job has "
+                         f"{ctx.world}")
     if not args.audio_path:
         parser.error("--audio_path is required")
-
-    device = torch.device(args.device)
+    seq_group = make_mesh(MeshConfig(data=1, seq=shards), ctx).seq if shards > 1 else None
+    writes = ctx.rank == 0
+    device = ctx.device
     configure_precision(args.dtype)
     model = build_said_model(args.prediction_type, args.unet_feature_dim, args.dtype)
     load_said_weights(model, args.weights_path, seed=args.seed)
     pipeline = SAIDPipeline(model.to(device).eval())
 
     waveform = load_audio(args.audio_path, pipeline.sampling_rate)
-    fit = fit_audio_unet(waveform, pipeline.sampling_rate, args.fps, args.divisor_unet)
+    fit = fit_audio_unet(waveform, pipeline.sampling_rate, args.fps, math.lcm(args.divisor_unet, shards))
     waveform_processed = process_audio(fit.waveform)
     window_len = fit.window_size
 
@@ -152,10 +166,13 @@ def main(argv=None) -> np.ndarray:
             strength=args.strength,
             save_intermediate=args.save_intermediate,
             length_bucket=args.length_bucket,
+            seq_group=seq_group,
             **sampling,
         )
 
     result = output.result[0, :window_len]
+    if not writes:
+        return result
     save_blendshape_coeffs(result, ARKIT_BLENDSHAPES, args.output_path)
     if args.save_image:
         save_blendshape_coeffs_image(result, args.output_image_path)

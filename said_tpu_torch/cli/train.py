@@ -25,11 +25,23 @@ or an HF wav2vec2 snapshot directory (``model.safetensors`` or
 ``pytorch_model.bin``: the reference's init, the audio encoder from the
 snapshot and the rest random from ``--seed``); without it the weights are
 random from ``--seed``. An orbax checkpoint directory (a JAX format) is
-refused. Not ported: sharding over several cards
-(``--mesh_data``/``--mesh_model``/``--mesh_seq`` > 1).
+refused.
+
+Data-parallel training over several cards: run under ``torchrun`` (one
+process a card; NCCL, or gloo with ``--device cpu``). ``--mesh_data N``
+splits each batch's rows over N ranks (``-1``: the largest count that
+divides the batch and the ranks, ``fit_data_axis``; ranks past it hold no
+rows and stop after set-up); every rank builds the same global batch from
+the seeded loaders and draws every random array at the global shape, and
+the gradients are summed over the ranks before the clip, so N ranks take
+the step one process takes. A batch the data axis does not divide (the
+batch-1 validation) is computed whole on every rank. Rank 0 alone writes
+the metrics, checkpoints and ``.pth`` exports; ``--resume`` loads on
+every rank. Not ported: ``--mesh_model`` and ``--mesh_seq`` > 1.
 
     python -m said_tpu_torch.cli.train --audio_dir BlendVOCA/audio \\
         --coeffs_dir BlendVOCA/blendshape_coeffs --output_dir output
+    torchrun --nproc_per_node 4 -m said_tpu_torch.cli.train --mesh_data 4 ...
 """
 
 from __future__ import annotations
@@ -56,6 +68,15 @@ from said_tpu_torch.data.loader import DataLoader, prefetch
 from said_tpu_torch.diffusion.schedule import DiffusionSchedule
 from said_tpu_torch.models.said import process_audio
 from said_tpu_torch.models.wav2vec2 import compute_time_mask_indices
+from said_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    SlicedGenerator,
+    fit_data_axis,
+    make_mesh,
+    maybe_init_distributed,
+    rank_rows,
+    shutdown,
+)
 from said_tpu_torch.train.said_train import TrainConfig, TrainState, eval_step, train_step
 from said_tpu_torch.utils.hf_snapshot import snapshot_file
 
@@ -109,10 +130,10 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    for flag in ("mesh_data", "mesh_model", "mesh_seq"):
+    for flag in ("mesh_model", "mesh_seq"):
         if getattr(args, flag) > 1:
             raise SystemExit(f"--{flag} > 1 is not ported to said_tpu_torch yet: "
-                             "ROADMAP Queue 1 item 13 (multi-GPU, data- and sequence-parallel training)")
+                             "ROADMAP Queue 1 item 13b (tensor and sequence-parallel training)")
     if args.init_weights and os.path.isdir(args.init_weights) and snapshot_file(args.init_weights) is None:
         raise SystemExit("--init_weights " + ORBAX_REFUSAL.format(path=args.init_weights))
 
@@ -128,8 +149,31 @@ def main(argv=None) -> None:
     add_arguments(parser)
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    ctx = maybe_init_distributed(args.device)
+    try:
+        _train(args, ctx)
+    finally:
+        shutdown(ctx)
 
-    device = torch.device(args.device)
+
+def _train(args: argparse.Namespace, ctx) -> None:
+    data_axis = args.mesh_data if args.mesh_data > 0 else fit_data_axis(args.batch_size, ctx.world,
+                                                                         args.mesh_model, args.mesh_seq)
+    try:
+        mesh = make_mesh(MeshConfig(data=data_axis, model=args.mesh_model, seq=args.mesh_seq), ctx)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_data {args.mesh_data}: {e} (the ranks of this job: {ctx.world})") from e
+    if not mesh.active:
+        print(f"rank {ctx.rank}: past the {data_axis}-rank data axis, holds no rows")
+        return
+    data = mesh.data
+    writer_rank = ctx.rank == 0
+
+    def log(msg):
+        if writer_rank:
+            print(msg)
+
+    device = ctx.device
     configure_precision(args.dtype)
     model = build_said_model(args.prediction_type, args.unet_feature_dim, args.dtype,
                              remat=bool(args.gradient_checkpointing))
@@ -162,19 +206,23 @@ def main(argv=None) -> None:
     state = TrainState(model, config)
     if args.resume:
         restore_train_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}")
+        log(f"resumed from {args.resume} at step {state.step}")
 
-    writer = MetricsWriter(args.output_dir, "SAiD")
+    writer = MetricsWriter(args.output_dir, "SAiD") if writer_rank else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
     spec_rng = np.random.default_rng(args.seed + 17)
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writer_rank:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     def prepare_batch(batch, bucket_size=None, augment=True):
         """A collated numpy batch → ``said_loss``'s keyword inputs on the
-        device. The window is padded up to the next multiple of
-        ``bucket_size`` (default ``--window_bucket``) and the real lengths
-        go along, so the masked model and losses see an unpadded batch;
-        the waveform is normalised over its real samples first."""
+        device, this rank's rows of it, and the generator to draw with
+        (data parallel: the global batch's draws, sliced to the rows).
+        The window is padded up to the next multiple of ``bucket_size``
+        (default ``--window_bucket``) and the real lengths go along, so
+        the masked model and losses see an unpadded batch; the waveform
+        is normalised over its real samples first. Spec-augment's masks
+        are drawn for the global batch."""
         if bucket_size is None:
             bucket_size = args.window_bucket
         coeffs = batch.blendshape_coeffs
@@ -192,10 +240,14 @@ def main(argv=None) -> None:
             if dynamic and coeffs.shape[1] > ws_real:
                 mask_time = np.pad(mask_time, ((0, 0), (0, coeffs.shape[1] - ws_real)))
 
-        def dev(a, dtype=None):
-            return None if a is None else torch.from_numpy(np.asarray(a, dtype)).to(device)
+        n = wave_np.shape[0]
+        rows = rank_rows(n, data.size, data.index)
+        split = rows != slice(0, n)
 
-        return {
+        def dev(a, dtype=None):
+            return None if a is None else torch.from_numpy(np.asarray(a[rows], dtype)).to(device)
+
+        inputs = {
             "waveform": dev(wave_np),
             "coeffs": dev(coeffs, np.float32),
             "cond": dev(batch.cond),
@@ -205,12 +257,17 @@ def main(argv=None) -> None:
             "window_real": ws_real if dynamic else None,
             "input_length": wave_real if dynamic else None,
         }
+        if not split:
+            return inputs, generator, None
+        inputs["global_batch"] = n
+        return inputs, SlicedGenerator(generator, 0, rows, n), data.group
 
     for epoch in range(1, args.epochs + 1):
         t0 = time.time()
         totals, count = {}, 0
         for batch in prefetch(train_loader):
-            metrics = train_step(state, schedule, prepare_batch(batch), generator)
+            inputs, draws, group = prepare_batch(batch)
+            metrics = train_step(state, schedule, inputs, draws, group)
             bsz = len(batch.waveform)
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v * bsz
@@ -224,25 +281,27 @@ def main(argv=None) -> None:
             with state.ema_weights():
                 for _ in range(args.val_repeat):
                     for batch in prefetch(val_loader):
-                        metrics = eval_step(model, schedule,
-                                            prepare_batch(batch, bucket_size=args.val_window_bucket, augment=False),
-                                            config, generator)
+                        # batch 1: whole on every rank, which keeps its generator in step
+                        inputs, _, _ = prepare_batch(batch, bucket_size=args.val_window_bucket, augment=False)
+                        metrics = eval_step(model, schedule, inputs, config, generator)
                         bsz = len(batch.waveform)
                         for k, v in metrics.items():
                             v_totals[k] = v_totals.get(k, 0.0) + v * bsz
                         v_count += bsz
             logs.update({f"Validation/{k}": v / v_count for k, v in v_totals.items()})
 
+        log(f"epoch {epoch}: " + ", ".join(f"{k}={v:.5f}" for k, v in logs.items()))
+        if not writer_rank:
+            continue
         writer.log(logs, epoch)
-        print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.5f}" for k, v in logs.items()))
-
         if epoch % args.save_period == 0:
             path = save_train_state(os.path.join(args.output_dir, "ckpt"), state, epoch)
             print(f"saved train state → {path}")
             if args.export_pth:
                 save_pth(state.export_state_dict(), os.path.join(args.output_dir, f"{epoch}.pth"))
 
-    writer.close()
+    if writer is not None:
+        writer.close()
 
 
 if __name__ == "__main__":

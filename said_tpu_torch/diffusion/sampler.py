@@ -14,7 +14,8 @@ torch and JAX draw different numbers from the same seed, so callers may
 inject every random array: the initial latents (the pipeline), the
 per-step eta noise (``eta_noise``, (K, B, T, C)) and the editing noise
 (``edit_noise``, (B, T, C)). Whatever is not injected is drawn with the
-given ``torch.Generator``.
+given ``torch.Generator`` (or a ``parallel.mesh.SlicedGenerator``, which
+draws the whole clip's noise and keeps this rank's frames).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from said_tpu_torch.diffusion.schedule import (
     inference_timesteps,
     pred_x0_from_model_output,
 )
+from said_tpu_torch.parallel.mesh import randn
 
 SOLVERS = ("ddim", "dpmpp_2m")
 
@@ -79,8 +81,8 @@ class Chain:
     dpm: Optional[dict] = None  # dpmpp_2m_tables(...) for the used steps
 
 
-def _randn_like(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+def _randn_like(x: torch.Tensor, generator) -> torch.Tensor:
+    return randn(x.shape, generator, x.device, x.dtype)
 
 
 def prepare_chain(

@@ -16,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from said_tpu_torch.ops.norms import group_norm, group_norm_masked, layer_norm
+from said_tpu_torch.ops.norms import group_norm, group_norm_masked, group_norm_sharded, layer_norm
+from said_tpu_torch.parallel.mesh import rand
+from said_tpu_torch.parallel.seq import halo, sharded
 
 
 class Derived:
@@ -57,11 +59,13 @@ class Dropout(nn.Dropout):
         return dropout(x, self.p, generator)
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Dropout with rate ``p`` drawn from ``generator`` (None: identity)."""
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Dropout with rate ``p`` drawn from ``generator`` (None: identity); a
+    ``parallel.mesh.SlicedGenerator`` draws the global batch's mask and
+    keeps this rank's rows."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = rand(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -126,7 +130,8 @@ class Conv1dSame(nn.Module):
     one GEMM over the three shifted copies of the zero-padded input,
     concatenated on the channel axis, against the weight re-laid out to
     (out, 3·in). Plain PyTorch: the JAX package computes these outside any
-    Pallas kernel too.
+    Pallas kernel too. On frames sharded over ``seq_group`` the k=3 conv's
+    padding is the neighbouring ranks' edge frames (a halo of 1).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
@@ -140,18 +145,19 @@ class Conv1dSame(nn.Module):
         self._w = Derived(lambda w: w.permute(0, 2, 1).reshape(w.shape[0], -1))
         self._b = Derived()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
         dt = x.dtype
         if self.kernel_size == 3:
-            xp = F.pad(x, (0, 0, 1, 1))
+            xp = halo(x, 1, 1, seq_group)
             x = torch.cat([xp[:, :-2], xp[:, 1:-1], xp[:, 2:]], dim=-1)
         return F.linear(x, self._w(self.weight, dt), self._b(self.bias, dt))
 
 
 class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics over (B, T, C), optional fused SiLU
-    (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router, or
-    the masked one when (B,) int32 real ``lengths`` are given."""
+    (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router, the
+    masked one when (B,) int32 real ``lengths`` are given, or the
+    frame-sharded one on frames sharded over ``seq_group``."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, act: str = "none"):
         super().__init__()
@@ -159,7 +165,11 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None, seq_group=None) -> torch.Tensor:
+        if sharded(seq_group):
+            if lengths is not None:
+                raise ValueError("the frame-sharded GroupNorm takes no lengths (SP excludes length buckets)")
+            return group_norm_sharded(x, self.num_groups, self.weight, self.bias, self.eps, self.act, seq_group)
         if lengths is None:
             return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act)
         return group_norm_masked(x, self.num_groups, self.weight, self.bias, lengths, self.eps, self.act)

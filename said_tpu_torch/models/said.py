@@ -15,9 +15,10 @@ and runs in length-bucketed mode; ``waveform_lengths`` adds mixed-length
 batches (rows of different real lengths). Parameter names are the
 reference's (``denoiser.model.…``, ``audio_encoder.…``,
 ``null_cond_emb``). ``SAIDPipeline.inference_streaming`` serves a clip of
-any length as windows stitched through the editing path. Not ported yet:
-sequence-parallel mode; the TPU-only chunked denoise dispatch is not
-needed here.
+any length as windows stitched through the editing path. With
+``seq_group`` a clip's frames are sharded over the ranks of a process
+group (sequence-parallel serving, the JAX ``seq_mesh``). The TPU-only
+chunked denoise dispatch is not needed here.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from said_tpu_torch.models.unet1d import (
     time_embed_table,
 )
 from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
+from said_tpu_torch.parallel.mesh import SlicedGenerator, randn
+from said_tpu_torch.parallel.seq import frames_of, gather, sharded
 
 SAMPLING_RATE = 16000
 
@@ -110,7 +113,7 @@ class SAID(nn.Module):
 
     def get_audio_embedding(self, waveform: torch.Tensor, num_frames: Optional[int], input_length=None,
                             num_frames_real=None, mask_time_indices=None,
-                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                            generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         """(B, T_a) processed waveform → (B, num_frames, E) embedding; in
         bucketed mode ``input_length``/``num_frames_real`` are the real
         sample and frame counts (ints or (B,) numpy lengths).
@@ -121,10 +124,11 @@ class SAID(nn.Module):
         (nor its cost) reaches it; the trainable ``audio_proj_layer``
         follows. ``mask_time_indices`` (B, num_frames) bool applies
         spec-augment; ``generator`` runs the encoder in train mode
-        (dropout and layerdrop drawn from it), None deterministic."""
+        (dropout and layerdrop drawn from it), None deterministic.
+        ``seq_group``: the embedding of this rank's frames of the clip."""
         with torch.no_grad():
             feats = self.audio_encoder(waveform, num_frames, input_length, num_frames_real, mask_time_indices,
-                                       generator)
+                                       generator, seq_group)
         if self.audio_proj_layer is not None:
             feats = self.audio_proj_layer(feats)
         return feats
@@ -179,22 +183,25 @@ class SAIDPipeline:
 
     @torch.no_grad()
     def prepare(
-        self, waveform: torch.Tensor, window_size: int, do_cfg: bool, input_length=None, window_real=None
+        self, waveform: torch.Tensor, window_size: int, do_cfg: bool, input_length=None, window_real=None,
+        seq_group=None,
     ) -> Tuple[Dict[str, List[KVCache]], torch.Tensor]:
         """The loop-invariant stage: audio encoder, null embedding, banded
         K/V caches (CFG-doubled, uncond first) and the timestep table.
         Bucketed mode: ``input_length`` and ``window_real``, the real
-        sample and frame counts (ints or (B,) numpy lengths)."""
+        sample and frame counts (ints or (B,) numpy lengths).
+        ``seq_group``: the encoder and the caches of this rank's frames."""
         model = self.model
         if (input_length is None) != (window_real is None):
             raise ValueError("bucketed mode needs both input_length and window_real")
-        audio_emb = model.get_audio_embedding(waveform, window_size, input_length, window_real)
+        audio_emb = model.get_audio_embedding(waveform, window_size, input_length, window_real,
+                                              seq_group=seq_group)
         context = audio_emb
         if do_cfg:
             uncond = model.null_embedding(audio_emb.shape[0], audio_emb.shape[1])
             context = torch.cat([uncond, audio_emb])
         seq = None if window_real is None else _denoise_lengths(window_real, do_cfg)
-        kv_caches = build_kv_caches(model.unet, context, window_size, seq_len_real=seq)
+        kv_caches = build_kv_caches(model.unet, context, audio_emb.shape[1], seq_len_real=seq, seq_group=seq_group)
         emb_table = time_embed_table(model.unet, np.arange(model.diffusion_steps))
         return kv_caches, emb_table
 
@@ -218,6 +225,7 @@ class SAIDPipeline:
         save_intermediate: bool = False,
         length_bucket: int = 0,
         waveform_lengths: Optional[np.ndarray] = None,
+        seq_group=None,
     ) -> SAIDInferenceOutput:
         """Full inference (reference ``SAID.inference`` semantics).
 
@@ -241,6 +249,21 @@ class SAIDPipeline:
         ``waveform_lengths`` (with ``length_bucket``): the real sample count
         of each row of ``waveform_processed``, a mixed-length batch; each
         row's real frames equal its own unpadded run.
+
+        ``seq_group`` (a ``parallel.mesh.AxisGroup`` of the ranks that
+        serve the clip; every rank calls with the same arguments):
+        sequence-parallel sampling, the JAX ``seq_mesh``. The conv stack and
+        the interpolation run unsharded on every rank; the encoder, the
+        K/V caches and the denoise loop run on this rank's T/n frames
+        (frame-sharded GroupNorm statistics, self-attention over gathered
+        K/V), and the result is gathered: every rank returns the whole
+        clip. Random arrays are drawn at the whole clip's shape from a
+        generator seeded alike on every rank and sliced to the rank's
+        frames (injected ones are sliced), so the result equals an
+        unsharded run's. The group's size must divide the frame count
+        (pad the clip via ``fit_audio_unet(divisor=...)``); exclusive with
+        ``length_bucket``; no ``guidance_rescale`` (its std spans the
+        clip). A group of one rank runs the normal route.
         """
         dev = self.device
         wave_np = np.array(waveform_processed, np.float32)
@@ -251,6 +274,16 @@ class SAIDPipeline:
         c = self.model.in_channels
 
         dynamic = length_bucket > 0
+        if seq_group is not None:
+            # the JAX checks (said_tpu/models/said.py:586-597), before any work
+            if dynamic:
+                raise ValueError("seq_group is exclusive with length_bucket")
+            if window_size % seq_group.size:
+                raise ValueError(f"the seq axis size ({seq_group.size}) must divide the frame count "
+                                 f"({window_size}); pad the clip via fit_audio_unet(divisor=...)")
+            if guidance_rescale > 0.0:
+                raise ValueError("guidance_rescale is not supported with seq_group (its std spans the whole clip)")
+        sp = sharded(seq_group)
         window_real, t_a_real = window_size, t_a
         if waveform_lengths is not None:
             if not dynamic:
@@ -272,17 +305,24 @@ class SAIDPipeline:
             window_size, t_a = window_pad, t_a_pad
         wave = torch.as_tensor(wave_np, device=dev)
 
+        # SP: this rank's frames, and draws of the whole clip sliced to them
+        frames = frames_of(window_size, seq_group) if sp else slice(0, window_size)
+        if sp:
+            generator = SlicedGenerator(generator, 1, frames, window_size)
+
         def on_dev(a):
             if a is None:
                 return None
             a = np.array(a, np.float32)
             if dynamic and a.shape[-2] < window_size:  # zero-pad the frame axis
                 a = np.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, window_size - a.shape[-2]), (0, 0)])
+            if sp:
+                a = np.ascontiguousarray(a[..., frames, :])
             return torch.as_tensor(a, device=dev)
 
         if latents is None:
             if init_samples is None:
-                lat = torch.randn((b, window_size, c), generator=generator, device=dev)
+                lat = randn((b, frames.stop - frames.start, c), generator, dev)
             else:
                 lat = on_dev(init_samples)
         else:
@@ -298,7 +338,7 @@ class SAIDPipeline:
         )
         kv_caches, emb_table = self.prepare(
             wave, window_size, config.do_cfg,
-            t_a_real if dynamic else None, window_real if dynamic else None,
+            t_a_real if dynamic else None, window_real if dynamic else None, seq_group,
         )
         unet = self.model.unet
         seq = None
@@ -311,7 +351,8 @@ class SAIDPipeline:
         fold = config.do_cfg and not isinstance(seq, torch.Tensor)
 
         def denoise_fn(x, t):
-            return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=fold, seq_len_real=seq)
+            return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=fold, seq_len_real=seq,
+                        seq_group=seq_group)
 
         result, interms = sample(
             self.schedule,
@@ -327,6 +368,9 @@ class SAIDPipeline:
             edit_noise=on_dev(edit_noise),
             generator=generator,
         )
+        if sp:
+            result = gather(result, seq_group, dim=1)
+            interms = None if interms is None else gather(interms, seq_group, dim=2)
         return SAIDInferenceOutput(
             result=result.cpu().numpy(),
             intermediates=None if interms is None else interms.cpu().numpy(),

@@ -19,6 +19,15 @@ the deterministic sampling path, the fused GEGLU kernel included. With
 backward pass (``torch.utils.checkpoint``), its dropout masks drawn
 again from the generator state they were first drawn from.
 
+Sequence-parallel serving (``seq_group``, a ``parallel.mesh.AxisGroup``):
+the (B, T/n, ·) activations are this rank's frames of the clip; the k=3
+convs take a halo of one frame from the neighbouring ranks, every
+GroupNorm joins its statistics across the ranks
+(``ops.norms.group_norm_sharded``), self-attention gathers K and V
+(``ops.attention.flash_attention_flat_sp``), and the cross-attention
+gathers the context and keeps the band rows of the local frames;
+LayerNorm and the GEGLU feed-forward act on each row and run unchanged.
+
 Length-bucketed and mixed-length batches (``seq_len_real``): every
 GroupNorm is the masked one, pads are zeroed before every k=3 conv and
 before the output conv, self-attention masks keys past each row's
@@ -38,9 +47,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from said_tpu_torch.models.layers import Conv1dSame, Dense, Dropout, Frames, GroupNorm32, LayerNormF32
-from said_tpu_torch.ops.attention import banded_attention_cached, self_attention
+from said_tpu_torch.ops.attention import banded_attention_cached, flash_attention_flat_sp, self_attention
 from said_tpu_torch.ops.ffn import geglu_ffn
 from said_tpu_torch.ops.masks import alignment_band_dynamic, band_gather_indices
+from said_tpu_torch.parallel.seq import gather, sharded
 
 KVCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -78,16 +88,16 @@ class ResBlock1D(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: Optional[Frames] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         lens = None if frames is None else frames.lens(x.shape[0])
         zero = (lambda v: v) if frames is None else frames.zero
         # SAME convs mix neighbours: pads must hold the zero an unpadded
         # run's boundary padding supplies
-        h = self.in_layers[2](zero(self.in_layers[0](x, lens)))
+        h = self.in_layers[2](zero(self.in_layers[0](x, lens, seq_group)), seq_group)
         e = self.emb_layers[1](F.silu(emb))
         h = h + e[:, None, :].to(h.dtype)
-        h = self.out_layers[2](self.out_layers[0](h, lens), generator)
-        h = self.out_layers[3](zero(h))
+        h = self.out_layers[2](self.out_layers[0](h, lens, seq_group), generator)
+        h = self.out_layers[3](zero(h), seq_group)
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip + h
 
@@ -112,32 +122,44 @@ class CrossAttention(nn.Module):
         kv_cache: Optional[KVCache] = None,
         frames: Optional[Frames] = None,
         generator: Optional[torch.Generator] = None,
+        seq_group=None,
     ) -> torch.Tensor:
         q = self.to_q(x)
         if kv_cache is not None:
             out = banded_attention_cached(q, *kv_cache, self.heads)
+        elif context is None and sharded(seq_group):
+            out = flash_attention_flat_sp(q, self.to_k(x), self.to_v(x), self.heads, seq_group)
         elif context is None:
             lens = None if frames is None else frames.lens(x.shape[0])
             out = self_attention(q, self.to_k(x), self.to_v(x), self.heads, lens)
         else:
+            context = gather(context, seq_group)
             k, v = self.to_k(context), self.to_v(context)
             real = None if frames is None else frames.host()
-            idx, valid = band_tables(x.shape[1], k.shape[1], k.device, real=real)
+            idx, valid = band_tables(x.shape[1], k.shape[1], k.device, real=real, seq_group=seq_group)
             out = banded_attention_cached(q, band_gather(k, idx, self.heads), band_gather(v, idx, self.heads),
                                           valid, self.heads)
         return self.to_out[1](self.to_out[0](out), generator)
 
 
-def band_tables(x_len: int, c_len: int, device: torch.device, align_pad: int = 1, real=None):
+def band_tables(x_len: int, c_len: int, device: torch.device, align_pad: int = 1, real=None, seq_group=None):
     """The alignment band for ``x_len`` query frames over ``c_len`` context
     positions, on ``device``: idx (T, W) int64 and valid (T, W) bool; with
     ``real`` (bucketed mode: an int, or (B,) numpy lengths, the same for
-    queries and context) the dynamic band, (B, T, W) for per-row lengths."""
+    queries and context) the dynamic band, (B, T, W) for per-row lengths.
+    With frames sharded over ``seq_group``, ``x_len`` is this rank's share:
+    the band of the whole clip (x_len·n frames over the whole context), its
+    rows of this rank."""
+    n = seq_group.size if sharded(seq_group) else 1
     if real is None:
-        idx, valid, _ = band_gather_indices(x_len, c_len, align_pad)
+        idx, valid, _ = band_gather_indices(x_len * n, c_len, align_pad)
     else:
-        idx, valid = alignment_band_dynamic(x_len, c_len, real, real, align_pad)
-    return torch.from_numpy(idx.astype(np.int64)).to(device), torch.from_numpy(valid).to(device)
+        idx, valid = alignment_band_dynamic(x_len * n, c_len, real, real, align_pad)
+    if n > 1:
+        rows = slice(seq_group.index * x_len, (seq_group.index + 1) * x_len)
+        idx, valid = idx[..., rows, :], valid[..., rows, :]
+    return (torch.from_numpy(np.ascontiguousarray(idx).astype(np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(valid)).to(device))
 
 
 def band_gather(k: torch.Tensor, idx: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -191,13 +213,15 @@ class BasicTransformerBlock(nn.Module):
         cfg_expand: bool = False,
         frames: Optional[Frames] = None,
         generator: Optional[torch.Generator] = None,
+        seq_group=None,
     ) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), frames=frames, generator=generator)
+        x = x + self.attn1(self.norm1(x), frames=frames, generator=generator, seq_group=seq_group)
         if cfg_expand:
             # CFG shared-prefix fold: rows [0:B] pair with the uncond half
             # of the K/V cache, [B:2B] with the cond half
             x = torch.cat([x, x])
-        x = x + self.attn2(self.norm2(x), context=context, kv_cache=kv_cache, frames=frames, generator=generator)
+        x = x + self.attn2(self.norm2(x), context=context, kv_cache=kv_cache, frames=frames, generator=generator,
+                           seq_group=seq_group)
         return x + self.ff(self.norm3(x), generator)
 
 
@@ -221,8 +245,9 @@ class SpatialTransformer(nn.Module):
         cfg_expand: bool = False,
         frames: Optional[Frames] = None,
         generator: Optional[torch.Generator] = None,
+        seq_group=None,
     ) -> torch.Tensor:
-        h = self.norm(x, None if frames is None else frames.lens(x.shape[0]))
+        h = self.norm(x, None if frames is None else frames.lens(x.shape[0]), seq_group)
         for d, block in enumerate(self.transformer_blocks):
             h = block(
                 h,
@@ -231,6 +256,7 @@ class SpatialTransformer(nn.Module):
                 cfg_expand=cfg_expand and d == 0,
                 frames=frames,
                 generator=generator,
+                seq_group=seq_group,
             )
         h = self.proj_out(h)
         if cfg_expand:
@@ -313,9 +339,14 @@ class UNet1DConditionModel(nn.Module):
         cfg_fold: bool = False,
         seq_len_real=None,
         generator: Optional[torch.Generator] = None,
+        seq_group=None,
     ) -> torch.Tensor:
         """Predict noise. sample (B, T, C_in); timesteps () or (B,);
         context (B, S, cross_attention_dim). Returns (B, T, C_out).
+
+        ``seq_group``: sample, context and the K/V caches hold this rank's
+        frames of a clip sharded over it (sequence-parallel serving, not
+        with ``seq_len_real`` or ``generator``); so does the result.
 
         Sampling fast path: ``kv_caches`` (``build_kv_caches``) and a
         precomputed ``emb`` (a row of ``time_embed_table``) replace the
@@ -341,6 +372,9 @@ class UNet1DConditionModel(nn.Module):
         if cfg_fold and getattr(seq_len_real, "ndim", 0) != 0:
             raise ValueError("cfg_fold supports only one seq_len_real for the batch "
                              "(per-row lengths use the unfolded path)")
+        if sharded(seq_group) and (seq_len_real is not None or generator is not None):
+            raise ValueError("the frame-sharded forward is sampling-only and takes no seq_len_real "
+                             "(sequence-parallel training is ROADMAP Queue 1 item 13b)")
         dt = self.dtype
         b = sample.shape[0]
         frames = None
@@ -365,13 +399,13 @@ class UNet1DConditionModel(nn.Module):
             context = context.to(dt)
 
         def res(block, h, e):
-            return self._block(block, h, e, frames=frames, generator=generator)
+            return self._block(block, h, e, frames=frames, generator=generator, seq_group=seq_group)
 
         def st(block, h, name, cfg_expand=False):
             return self._block(block, h, context, kv.get(name), cfg_expand=cfg_expand, frames=frames,
-                               generator=generator)
+                               generator=generator, seq_group=seq_group)
 
-        h0 = self.input_blocks[0][0](x)
+        h0 = self.input_blocks[0][0](x, seq_group)
         h1 = res(self.input_blocks[1][0], h0, emb)
         h1 = st(self.input_blocks[1][1], h1, "input_attn", cfg_expand=cfg_fold)
         if cfg_fold:
@@ -390,10 +424,10 @@ class UNet1DConditionModel(nn.Module):
         o = st(self.output_blocks[1][1], o, "output_attn1")
 
         if frames is None:
-            o = self.out[0](o)
+            o = self.out[0](o, seq_group=seq_group)
         else:
             o = frames.zero(self.out[0](o, frames.lens(o.shape[0])))
-        o = self.out[2](o)
+        o = self.out[2](o, seq_group)
         return o.to(sample.dtype)
 
     def _block(self, block: nn.Module, *args, generator: Optional[torch.Generator] = None, **kwargs):
@@ -438,14 +472,18 @@ def build_kv_caches(
     x_len: int,
     align_pad: int = 1,
     seq_len_real=None,
+    seq_group=None,
 ) -> Dict[str, List[KVCache]]:
     """Per-block banded K/V gathers for a fixed context (B, S, E):
     ``{block_name: [(k_win, v_win, valid), ...per depth]}``. With
     ``seq_len_real`` (an int, or (B,) numpy lengths) the band is the
     dynamic one of bucketed mode, gathered per row for (B,) lengths; its
-    tables are uploaded once for all blocks."""
-    context = context.to(unet.dtype)
-    idx, valid = band_tables(x_len, context.shape[1], context.device, align_pad, seq_len_real)
+    tables are uploaded once for all blocks. With ``seq_group``, the
+    context is this rank's frames of a clip sharded over it and ``x_len``
+    its share of the query frames: the context is gathered, and each rank
+    keeps the caches of its own frames (the JAX ``_shard_seq_tree``)."""
+    context = gather(context.to(unet.dtype), seq_group)
+    idx, valid = band_tables(x_len, context.shape[1], context.device, align_pad, seq_len_real, seq_group)
     caches = {}
     for name, st in unet.spatial_transformers():
         caches[name] = [

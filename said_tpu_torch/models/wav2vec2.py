@@ -28,6 +28,14 @@ probabilities are dropped out). Spec-augment: ``mask_time_indices``
 by the learned ``masked_spec_embed``. The "layer" feature-extractor norm
 (``feat_extract_norm="layer"``) runs the conv with its bias, the
 LayerNorm kernel router over the channels and GELU on every conv layer.
+
+Sequence-parallel serving (``seq_group``, a ``parallel.mesh.AxisGroup``):
+the conv stack and the interpolation run unsharded on every rank, then
+the features are cut to this rank's frames; the positional conv takes a
+halo of k/2 frames before and (k−1)/2 after from the neighbouring ranks
+(so the even k's dropped trailing frame is dropped once, at the clip's
+end), attention gathers K and V (``flash_attention_flat_sp``), and the
+row-wise LayerNorms and projections run on the local frames.
 """
 
 from __future__ import annotations
@@ -41,9 +49,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from said_tpu_torch.models.layers import Dense, Derived, Frames, GroupNorm32, LayerNormF32, dropout
-from said_tpu_torch.ops.attention import dense_attention, self_attention
+from said_tpu_torch.ops.attention import dense_attention, flash_attention_flat_sp, self_attention
 from said_tpu_torch.ops.conv import strided_conv_gelu
 from said_tpu_torch.ops.resample import linear_interp_time, linear_interp_time_dynamic
+from said_tpu_torch.parallel.mesh import unsliced
+from said_tpu_torch.parallel.seq import halo, shard_frames, sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +210,7 @@ class PositionalConvEmbedding(nn.Module):
         conv.bias = nn.Parameter(torch.zeros(h))
         self.conv = conv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
         # In bfloat16 mode the operands are rounded to bf16 and the conv
         # accumulates in f32, like every product of the port. (torch's CPU
         # bf16 grouped conv1d returns wrong values: a relative error above
@@ -209,10 +219,16 @@ class PositionalConvEmbedding(nn.Module):
         v = self.conv.weight_v.double()
         norm = torch.sqrt((v**2).sum(dim=(0, 1), keepdim=True))
         w = (self.conv.weight_g.double() * (v / norm)).to(dt).float()
-        h = F.conv1d(x.transpose(1, 2).float(), w, self.conv.bias.float(),
-                     padding=self.kernel // 2, groups=self.groups)
-        if self.kernel % 2 == 0:
-            h = h[:, :, :-1]
+        if sharded(seq_group):
+            # output t reads inputs t − k/2 … t + (k−1)/2: VALID over the halo
+            # gives this rank's frames exactly
+            xh = halo(x, self.kernel // 2, (self.kernel - 1) // 2, seq_group)
+            h = F.conv1d(xh.transpose(1, 2).float(), w, self.conv.bias.float(), groups=self.groups)
+        else:
+            h = F.conv1d(x.transpose(1, 2).float(), w, self.conv.bias.float(),
+                         padding=self.kernel // 2, groups=self.groups)
+            if self.kernel % 2 == 0:
+                h = h[:, :, :-1]
         return F.gelu(h.transpose(1, 2)).to(dt).contiguous()
 
 
@@ -226,9 +242,11 @@ class Attention(nn.Module):
         self.out_proj = Dense(hidden, hidden)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        if generator is None:
+        if sharded(seq_group):
+            out = flash_attention_flat_sp(q, k, v, self.heads, seq_group, lengths)
+        elif generator is None:
             out = self_attention(q, k, v, self.heads, lengths)
         else:  # train mode: dense at any length, its probabilities dropped out
             out = dense_attention(q, k, v, self.heads, lengths,
@@ -261,9 +279,9 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNormF32(h, config.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         p = self.config.hidden_dropout
-        x = self.layer_norm(x + dropout(self.attention(x, lengths, generator), p, generator))
+        x = self.layer_norm(x + dropout(self.attention(x, lengths, generator, seq_group), p, generator))
         ff = self.feed_forward(x, self.config.activation_dropout, generator)
         return self.final_layer_norm(x + dropout(ff, p, generator))
 
@@ -277,22 +295,23 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_hidden_layers))
 
     def forward(self, h: torch.Tensor, frames: Optional[Frames] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         if frames is not None:
             # the SAME-padded positional conv must see the zero boundary an
             # unpadded run would
             h = frames.zero(h)
-        h = self.layer_norm(h + self.pos_conv_embed(h))
+        h = self.layer_norm(h + self.pos_conv_embed(h, seq_group))
         h = dropout(h, self.config.hidden_dropout, generator)
         skip = [False] * len(self.layers)
         if generator is not None and self.config.layerdrop > 0.0:
             # layerdrop: HF skips a whole layer with this probability in
             # train mode (one draw a layer, read on the host at once)
-            draws = torch.rand(len(self.layers), generator=generator, device=generator.device)
+            base = unsliced(generator)  # one draw a layer, the same on every rank
+            draws = torch.rand(len(self.layers), generator=base, device=base.device)
             skip = (draws < self.config.layerdrop).tolist()
         for layer, skipped in zip(self.layers, skip):
             if not skipped:
-                h = layer(h, None if frames is None else frames.lengths, generator)
+                h = layer(h, None if frames is None else frames.lengths, generator, seq_group)
         return h
 
 
@@ -332,23 +351,30 @@ class Wav2Vec2Encoder(nn.Module):
         return feats, feat_len
 
     def encode_features(self, feats: torch.Tensor, real_frames=None, mask_time_indices=None,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
         """Feature projection + transformer encoder; ``real_frames`` (an int
         or (B,) numpy lengths) in bucketed mode; ``mask_time_indices``
         (B, T) bool (spec-augment) replaces masked frames by
-        ``masked_spec_embed``; ``generator`` runs train mode."""
+        ``masked_spec_embed``; ``generator`` runs train mode; ``seq_group``:
+        ``feats`` are this rank's frames of a clip sharded over it, and so
+        is the result (serving only)."""
+        if sharded(seq_group) and (real_frames is not None or mask_time_indices is not None or generator is not None):
+            raise ValueError("the frame-sharded encoder is serving-only: no lengths, spec-augment or train mode")
         h = dropout(self.feature_projection(feats), self.config.feat_proj_dropout, generator)
         if mask_time_indices is not None:
             m = torch.as_tensor(mask_time_indices, device=h.device)[:, :, None]
             h = torch.where(m, self.masked_spec_embed.to(h.dtype), h)
         frames = None if real_frames is None else Frames(real_frames, h.shape[0], h.shape[1], h.device, h.dtype)
-        return self.encoder(h, frames, generator)
+        return self.encoder(h, frames, generator, seq_group)
 
     def forward(self, input_values: torch.Tensor, num_frames=None, input_length=None,
                 num_frames_real=None, mask_time_indices=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
+        """``seq_group``: the conv stack and the interpolation run unsharded,
+        then the encoder on this rank's frames (the result's frames too)."""
         feats, real = self.extract_features(input_values, num_frames, input_length, num_frames_real)
-        return self.encode_features(feats, real, mask_time_indices, generator)
+        feats = shard_frames(feats, seq_group)
+        return self.encode_features(feats, real, mask_time_indices, generator, seq_group)
 
 
 def compute_time_mask_indices(

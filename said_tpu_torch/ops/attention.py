@@ -22,6 +22,9 @@ runs as ``_FlashAttentionFn`` (forward as above) whose backward,
 :734): every key at once up to ``BWD_DENSE_MAX`` keys, in
 ``BWD_BLOCK_K``-key blocks beyond, never a (T, S) tensor past 4096 keys.
 
+Sequence-parallel serving: ``flash_attention_flat_sp`` keeps Q
+frame-sharded and gathers K and V, then routes as above.
+
 Nothing catches a kernel failure to fall back. The TPU router's VMEM
 thresholds (``_fullk_smax``, ``_blocked_blocks``) have no counterpart:
 the one kernel streams any key length.
@@ -36,6 +39,7 @@ import torch
 
 from said_tpu_torch import _build
 from said_tpu_torch.ops import needs_grad
+from said_tpu_torch.parallel.seq import gather
 
 _NEG_INF = float(torch.finfo(torch.float32).max)
 
@@ -262,6 +266,35 @@ def self_attention(
     if needs_grad(q, k, v):
         return _FlashAttentionFn.apply(q, k, v, num_heads, lengths)
     return _flash_route(q, k, v, num_heads, lengths)
+
+
+def flash_attention_flat_sp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    group=None,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Frame-sharded (sequence-parallel) self-attention, the JAX
+    ``flash_attention_flat_sp`` / ``_sp_flash``
+    (said_tpu/ops/pallas_attention.py:784-876): q, k, v are this rank's
+    (B, T/n, H·D) frames of a clip sharded over ``group`` (a
+    ``parallel.mesh.AxisGroup``); Q stays sharded, K and V are all-gathered
+    along frames, and the local call is ``_flash_route`` with T_q = T/n and
+    S = T (on the card the flash kernel, on the CPU its plain version). The
+    output is this rank's frames. With no group, or a group of one rank,
+    it is ``self_attention``, as in JAX. No runtime lengths (SP serves one
+    long clip, not mixed-length buckets), and no backward yet: an input
+    that needs a gradient raises."""
+    if lengths is not None:
+        raise ValueError("flash_sp does not support runtime lengths")
+    if group is None or group.size == 1:
+        return self_attention(q, k, v, num_heads)
+    if needs_grad(q, k, v):
+        raise NotImplementedError("flash_attention_flat_sp has no backward yet: sequence-parallel training is "
+                                  "ROADMAP Queue 1 item 13b")
+    return _flash_route(q, gather(k, group), gather(v, group), num_heads, None)
 
 
 # ------------------------------------------------------------- backward

@@ -56,6 +56,16 @@ shape alone (``group_norm_plan``):
   written once. ``group_norm_chunked_plain`` is the plain twin of this
   arithmetic.
 
+Frame-sharded GroupNorm (sequence-parallel serving, ``group_norm_sharded``):
+each rank holds T/n frames of a clip, so the statistics must span every
+rank's frames. It runs the split's two kernels as two wrappers:
+``group_norm_stats_kernel`` writes the rank's partials, which are
+all-gathered over the ``seq`` group, and ``group_norm_apply_kernel`` joins
+all n·K of them (rank, then chunk) and normalises the local frames: its
+count of partials is passed apart from its grid's chunks.
+``group_norm_partials_plain`` / ``group_norm_join_plain`` are the plain
+twins of the two stages, ``group_norm_sharded_plain`` the CPU's route.
+
 Neither route uses atomics: the result is the same bits on every call.
 
 Gradients: where an input needs one, a router runs as a
@@ -80,6 +90,7 @@ import torch
 
 from said_tpu_torch import _build
 from said_tpu_torch.ops import needs_grad
+from said_tpu_torch.parallel.seq import gather
 
 # triton.language, bound by ``_kernels()`` on the first launch. The kernel
 # bodies below resolve ``tl`` from this module's globals when Triton
@@ -281,6 +292,73 @@ def group_norm_cluster_plain(
     return out.to(x.dtype)
 
 
+def group_norm_partials_plain(x: torch.Tensor, num_groups: int, chunk_t: int | None = None) -> torch.Tensor:
+    """The split's stage 1 in plain PyTorch: (3, B, G, K) float32 partials,
+    per (batch, group, chunk of ``chunk_t`` frames; by default one chunk of
+    every frame) the count of elements, their sum and their M2 about the
+    chunk's own mean, two-pass. ``group_norm_stats_kernel`` writes the
+    same layout."""
+    b, t, c = x.shape
+    g, cg = num_groups, c // num_groups
+    chunk_t = chunk_t or t
+    k = -(-t // chunk_t)
+    pad = k * chunk_t - t
+    xk = torch.nn.functional.pad(x.float().reshape(b, t, g, cg), (0, 0, 0, 0, 0, pad)).reshape(b, k, chunk_t, g, cg)
+    mk = torch.nn.functional.pad(torch.ones((b, t), device=x.device), (0, pad)).reshape(b, k, chunk_t, 1, 1)
+    cnt = (mk.sum(dim=(2, 4)) * cg).expand(b, k, g)
+    s = (xk * mk).sum(dim=(2, 4))
+    mean = s / cnt.clamp(min=1.0)
+    m2 = (((xk - mean[:, :, None, :, None]) * mk) ** 2).sum(dim=(2, 4))
+    return torch.stack([cnt, s, m2]).permute(0, 1, 3, 2).contiguous()
+
+
+def group_norm_join_plain(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    parts: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+) -> torch.Tensor:
+    """The split's stage 2 in plain PyTorch: x normalised with the
+    statistics joined from ``parts`` (3, B, G, P), P partials a group in
+    their order, by Chan's formula as ``_group_stats_combine`` joins them:
+    n = Σ n_k, mean = Σ s_k / n, var = Σ (M2_k + n_k·(s_k / n_k − mean)²) / n,
+    every divisor clamped to ≥ 1."""
+    b, t, c = x.shape
+    g = num_groups
+    cnt, s, m2 = parts.float().unbind(0)  # (b, g, P)
+    n = cnt.sum(dim=-1).clamp(min=1.0)
+    mean = s.sum(dim=-1) / n
+    shift = s / cnt.clamp(min=1.0) - mean[..., None]
+    var = (m2 + cnt * shift * shift).sum(dim=-1) / n
+    rstd = 1.0 / torch.sqrt(var + eps)
+    xf = x.float().reshape(b, t, g, c // g)
+    out = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(b, t, c)
+    out = out * weight.float() + bias.float()
+    if act == "silu":
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+def group_norm_sharded_plain(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+    group=None,
+) -> torch.Tensor:
+    """GroupNorm of a frame-sharded activation in plain PyTorch (the CPU's
+    route): this rank's partials (one a group, over its frames), gathered
+    from every rank of ``group`` (a ``parallel.mesh.AxisGroup``) in rank
+    order, joined; only the local frames are normalised."""
+    parts = gather(group_norm_partials_plain(x, num_groups), group, dim=3)
+    return group_norm_join_plain(x, num_groups, weight, bias, parts, eps, act)
+
+
 # ------------------------------------------------------------- backwards
 
 
@@ -460,6 +538,33 @@ def group_norm_masked(
     return _group_norm_masked_route(x, num_groups, weight, bias, lengths, eps, act)
 
 
+def group_norm_sharded(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+    group=None,
+) -> torch.Tensor:
+    """GroupNorm(+SiLU) of a frame-sharded (B, T/n, C) activation whose
+    statistics span the frames of every rank of ``group`` (sequence-parallel
+    serving; the JAX package has GSPMD partition ``_group_norm_jnp``). The
+    CPU runs ``group_norm_sharded_plain``; CUDA the split's two Triton
+    kernels: each rank's partials (``group_norm_stats_kernel``) are
+    all-gathered, and ``group_norm_apply_kernel`` joins all of them in one
+    fixed order (rank, then chunk) and normalises the local frames. The
+    one-launch kernel cannot join statistics across ranks, so this route
+    never takes it. Serving only: an input that needs a gradient raises."""
+    if needs_grad(x, weight, bias):
+        raise NotImplementedError("the frame-sharded GroupNorm has no backward yet: sequence-parallel training is "
+                                  "ROADMAP Queue 1 item 13b")
+    if x.device.type == "cpu":
+        return group_norm_sharded_plain(x, num_groups, weight, bias, eps, act, group)
+    parts = gather(group_norm_stats_kernel(x, num_groups), group, dim=3)
+    return group_norm_apply_kernel(x, num_groups, weight, bias, parts, eps, act)
+
+
 # ------------------------------------------------------- Triton kernels
 
 
@@ -514,11 +619,13 @@ def _group_norm_stats(
 
 
 def _group_norm_apply(
-    X, W, B, Y, P, T, C, G, cg, n_gblocks, n_chunks, chunk_t, plane, eps,
+    X, W, B, Y, P, T, C, G, cg, n_gblocks, n_parts, chunk_t, plane, eps,
     SILU: "tl.constexpr", GB: "tl.constexpr", CG_P: "tl.constexpr", BLOCK_T: "tl.constexpr",
     NCH_P: "tl.constexpr",
 ):
-    # stage 2 of the split plan: combine every chunk's partials, normalise this chunk
+    # stage 2 of the split plan: combine all n_parts partials of a group
+    # (this call's chunks, or every rank's on the frame-sharded route),
+    # normalise this program's chunk of the local frames
     chunk = tl.program_id(0)
     pid = tl.program_id(1)
     batch = pid // n_gblocks
@@ -531,8 +638,8 @@ def _group_norm_apply(
     base = batch.to(tl.int64) * T * C
 
     k = tl.arange(0, NCH_P)
-    pofs = (batch * G + g0 + gi)[None, :] * n_chunks + k[:, None]
-    pmask = (k < n_chunks)[:, None] & cmask[None, :]
+    pofs = (batch * G + g0 + gi)[None, :] * n_parts + k[:, None]
+    pmask = (k < n_parts)[:, None] & cmask[None, :]
     cnt_k = tl.load(P + pofs, mask=pmask, other=0.0)
     sum_k = tl.load(P + plane + pofs, mask=pmask, other=0.0)
     m2_k = tl.load(P + 2 * plane + pofs, mask=pmask, other=0.0)
@@ -910,3 +1017,72 @@ def group_norm_masked_kernel(
 
 
 group_norm_masked_kernel.launches = 0
+
+
+def _split_geometry(x: torch.Tensor, num_groups: int, name: str):
+    if x.ndim != 3 or x.shape[-1] % num_groups or x.shape[1] == 0:
+        raise ValueError(f"{name}: needs (B, T>0, C) with C % G == 0, got {tuple(x.shape)}, G={num_groups}")
+    b, t, c = x.shape
+    return split_plan(b, t, c, num_groups), _group_geometry(c, num_groups)
+
+
+def group_norm_stats_kernel(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The split's stage 1 alone (``_group_norm_stats``) on a contiguous
+    (B, T, C) CUDA tensor: (3, B, G, K) float32 partials, the count, sum and
+    M2 about its own mean of each of the K chunks of ``split_plan``."""
+    name = "group_norm_stats_kernel"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: needs a CUDA tensor, got device {x.device}")
+    if x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous float32 or bfloat16 tensor, got {x.dtype}")
+    plan, (cg, cg_p, gb, n_gblocks, block_t) = _split_geometry(x, num_groups, name)
+    b, t, c = x.shape
+    parts = torch.empty((3, b, num_groups, plan.chunks), dtype=torch.float32, device=x.device)
+    stats, _ = _kernels()
+    # unmasked: L is never read (MASKED is a compile-time False)
+    stats[(plan.chunks, b * n_gblocks)](x, x, parts, t, c, num_groups, cg, n_gblocks, plan.chunks, plan.frames,
+                                        b * num_groups * plan.chunks, MASKED=False, GB=gb, CG_P=cg_p,
+                                        BLOCK_T=block_t, num_warps=4)
+    group_norm_stats_kernel.launches += 1
+    return parts
+
+
+group_norm_stats_kernel.launches = 0
+
+
+def group_norm_apply_kernel(
+    x: torch.Tensor,
+    num_groups: int,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    parts: torch.Tensor,
+    eps: float = 1e-5,
+    act: str = "none",
+) -> torch.Tensor:
+    """The split's stage 2 alone (``_group_norm_apply``): a contiguous
+    (B, T, C) CUDA tensor normalised with the statistics joined from
+    ``parts``, a contiguous float32 (3, B, G, P) tensor of P partials a
+    group in their order (``group_norm_stats_kernel``'s, of one call or of
+    every rank's joined along the last axis); the grid is x's own
+    ``split_plan``, apart from P."""
+    name = "group_norm_apply_kernel"
+    c = _check(x, weight, bias, name)
+    if act not in ("none", "silu"):
+        raise ValueError(f"{name}: act {act!r} not supported")
+    plan, (cg, cg_p, gb, n_gblocks, block_t) = _split_geometry(x, num_groups, name)
+    b, t, _ = x.shape
+    if (parts.dtype != torch.float32 or parts.ndim != 4 or tuple(parts.shape[:3]) != (3, b, num_groups)
+            or parts.device != x.device or not parts.is_contiguous()):
+        raise ValueError(f"{name}: parts must be a contiguous float32 (3, {b}, {num_groups}, P) tensor on {x.device}, "
+                         f"got {parts.dtype} {tuple(parts.shape)} on {parts.device}")
+    n_parts = parts.shape[3]
+    y = torch.empty_like(x)
+    _, apply = _kernels()
+    apply[(plan.chunks, b * n_gblocks)](x, weight, bias, y, parts, t, c, num_groups, cg, n_gblocks, n_parts,
+                                        plan.frames, b * num_groups * n_parts, eps, SILU=act == "silu",
+                                        NCH_P=_next_pow2(n_parts), GB=gb, CG_P=cg_p, BLOCK_T=block_t, num_warps=4)
+    group_norm_apply_kernel.launches += 1
+    return y
+
+
+group_norm_apply_kernel.launches = 0

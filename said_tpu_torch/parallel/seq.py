@@ -1,0 +1,89 @@
+"""Frame-axis collectives of sequence-parallel serving.
+
+The JAX package shards a clip's frames over a 'seq' mesh axis and lets
+GSPMD write the collectives (``said_tpu/models/said.py:645-690``); here
+they are explicit, on an ``AxisGroup`` of ``parallel.mesh``:
+
+- ``shard_frames``: this rank's contiguous block of frames (the group's
+  size divides the frame count);
+- ``gather``: every rank's block, joined in rank order along an axis;
+- ``halo``: a block with its neighbours' edge frames on each side,
+  zeros past the clip's ends, as a SAME conv pads an unsharded clip.
+
+Every exchange is one ``all_gather`` (the halo gathers the edge slices
+of every rank, not ``send``/``recv``: gloo does not move CUDA tensors
+point to point, and ranks that share one card run over gloo). A group of
+size 1 moves nothing.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+from said_tpu_torch.parallel.mesh import AxisGroup, rank_rows
+
+
+def sharded(group) -> bool:
+    """Whether ``group`` (an ``AxisGroup`` or None) splits the frames."""
+    return group is not None and group.size > 1
+
+
+def frames_of(t: int, group: AxisGroup) -> slice:
+    """This rank's frames of a T-frame clip; raises where the group's size
+    does not divide T."""
+    if t % group.size:
+        raise ValueError(f"the seq axis size ({group.size}) must divide the frame count ({t})")
+    return rank_rows(t, group.size, group.index)
+
+
+def shard_frames(x: torch.Tensor, group: AxisGroup, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (contiguous)."""
+    if not sharded(group):
+        return x
+    s = frames_of(x.shape[dim], group)
+    return x.narrow(dim, s.start, s.stop - s.start).contiguous()
+
+
+def _all_gather(x: torch.Tensor, group: AxisGroup) -> list[torch.Tensor]:
+    """Every rank's ``x`` (one shape on every rank), in rank order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group.size)]
+    if group.timed and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        dist.all_gather(parts, x, group=group.group)
+        torch.cuda.synchronize(x.device)
+        group.seconds += time.perf_counter() - t0
+    else:
+        dist.all_gather(parts, x, group=group.group)
+    group.calls += 1
+    return parts
+
+
+def gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order (``x`` itself
+    where the group does not shard)."""
+    if not sharded(group):
+        return x
+    return torch.cat(_all_gather(x, group), dim=dim)
+
+
+def halo(x: torch.Tensor, left: int, right: int, group) -> torch.Tensor:
+    """(B, left + L + right, ...) from this rank's (B, L, ...) block: the
+    ``left`` frames before it and the ``right`` frames after it in the
+    clip, zeros where the clip ends (a whole block is zeros-padded
+    likewise where the group does not shard). A block shorter than a halo
+    takes frames from as many ranks as it needs."""
+    if not sharded(group):
+        return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (left, right))
+    n = x.shape[1]
+    a, b = min(right, n), min(left, n)  # the leading frames a left neighbour needs, the trailing ones a right
+    parts = _all_gather(torch.cat([x[:, :a], x[:, n - b:]], dim=1), group)
+    r = group.index
+    zeros = x.new_zeros((x.shape[0], max(left, right)) + tuple(x.shape[2:]))
+    before = torch.cat([zeros[:, :left]] + [p[:, a:] for p in parts[:r]], dim=1)[:, -left:] if left else x[:, :0]
+    after = torch.cat([p[:, :a] for p in parts[r + 1:]] + [zeros[:, :right]], dim=1)[:, :right]
+    return torch.cat([before, x, after], dim=1)

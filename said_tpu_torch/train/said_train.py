@@ -15,6 +15,15 @@ The optimizer is optax's ``chain(clip_by_global_norm, adamw)``, written
 out here (``Optimizer``); ``torch.optim`` differs from it in three places
 (see there). Randomness (timesteps, noise, dropout) is drawn from one
 explicit ``torch.Generator``; the tests inject timesteps and noise.
+
+Data-parallel training (``cli/train.py --mesh_data``): each rank computes
+the loss of its rows with the global batch's denominators
+(``global_batch``) and draws every random array at the global batch's
+shape from a generator every rank seeds alike
+(``parallel.mesh.SlicedGenerator``); ``train_step`` sums the gradients
+and the metrics over the data axis (``reduce_group``) before the
+global-norm clip, so N ranks take the step one process takes on the
+whole batch (the JAX package's one jitted step with sharded inputs).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from said_tpu_torch.diffusion.schedule import DiffusionSchedule
 from said_tpu_torch.models.said import SAID
+from said_tpu_torch.parallel.mesh import randint, randn
 from said_tpu_torch.train.ema import ema_update_
 
 
@@ -80,6 +90,7 @@ def said_loss(
     timesteps: Optional[torch.Tensor] = None,  # (B,) injected
     noise: Optional[torch.Tensor] = None,  # (B, T, C) injected
     generator: Optional[torch.Generator] = None,
+    global_batch: Optional[int] = None,  # data parallel: the global batch's rows
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The randomised-noise training loss and its parts (the JAX
     ``said_loss``). Timesteps and noise not injected are drawn from
@@ -88,7 +99,12 @@ def said_loss(
 
     With ``window_real``/``input_length`` the batch is padded to a
     bucketed shape and every reduction is masked to the real frames,
-    numerically an unpadded batch of the real window."""
+    numerically an unpadded batch of the real window.
+
+    ``global_batch``: these B rows are one data-parallel rank's share of a
+    batch of ``global_batch`` rows; every loss term is divided by the
+    global batch's count, so the ranks' losses (and gradients) sum to the
+    whole batch's. Draw through a ``SlicedGenerator`` then."""
     b, window, c = coeffs.shape
     dev = coeffs.device
     dynamic = window_real is not None
@@ -100,7 +116,7 @@ def said_loss(
 
     coeff_latents = coeffs * model.latent_scale
     if timesteps is None:
-        timesteps = torch.randint(0, schedule.num_train_timesteps, (b,), generator=generator, device=dev)
+        timesteps = randint(schedule.num_train_timesteps, (b,), generator, dev)
 
     encoder_stochastic = train and config.encoder_train_mode
     cond_embedding = model.get_audio_embedding(
@@ -113,7 +129,7 @@ def said_loss(
     audio_embedding = torch.where(cond.reshape(-1, 1, 1).to(dev), cond_embedding, uncond_embedding)
 
     if noise is None:
-        noise = torch.randn(coeff_latents.shape, generator=generator, device=dev, dtype=coeff_latents.dtype)
+        noise = randn(coeff_latents.shape, generator, dev, coeff_latents.dtype)
     noisy = schedule.add_noise(coeff_latents, noise, timesteps)
     velocity = schedule.get_velocity(coeff_latents, noise, timesteps)
 
@@ -137,6 +153,9 @@ def said_loss(
         loss_pred = (pred_rw - answer_rw).abs().mean()
         loss_vel = vel_diff.abs().mean()
 
+    # a rank's share of the global batch's means
+    share = (lambda v: v * (b / global_batch)) if global_batch not in (None, b) else (lambda v: v)
+    loss_pred, loss_vel = share(loss_pred), share(loss_vel)
     loss = loss_pred + config.weight_vel * loss_vel
     metrics = {"loss_predict": loss_pred, "loss_velocity": loss_vel}
 
@@ -157,6 +176,7 @@ def said_loss(
             loss_vertex = ((be_pred - be_answer).abs() * mv).sum() / (frame_mask.sum() * bsz * (v * i))
         else:
             loss_vertex = (be_pred - be_answer).abs().mean()
+        loss_vertex = share(loss_vertex)
         loss = loss + config.weight_vertex * loss_vertex
         metrics["loss_vertex"] = loss_vertex
 
@@ -305,11 +325,16 @@ class TrainState:
                 torch._foreach_copy_(params, backup)
 
 
-def train_step(state: TrainState, schedule: DiffusionSchedule, batch: Dict, generator: torch.Generator
-               ) -> Dict[str, float]:
+def train_step(state: TrainState, schedule: DiffusionSchedule, batch: Dict, generator: torch.Generator,
+               reduce_group=None) -> Dict[str, float]:
     """One training step on ``batch`` (``said_loss``'s keyword inputs):
     the loss and its gradients with respect to the trainable parameters,
     then, if the loss is finite, the optimizer update and the EMA step.
+
+    ``reduce_group`` (a process group): ``batch`` is this rank's rows of a
+    data-parallel batch (with ``global_batch``); the gradients and the
+    metrics are summed over the group, in one ``all_reduce`` each, before
+    the clip, so every rank clips and steps on the whole batch's gradient.
 
     NaN guard (said_tpu/train/said_train.py:397-416): a non-finite loss
     skips the update, so the parameters, the optimizer's state (its count
@@ -320,6 +345,9 @@ def train_step(state: TrainState, schedule: DiffusionSchedule, batch: Dict, gene
     params = list(state.params.values())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    if reduce_group is not None:
+        grads = _all_reduce_sum(grads, reduce_group)
+        metrics = dict(zip(metrics, _all_reduce_sum([v.detach() for v in metrics.values()], reduce_group)))
     out = {k: float(v.detach()) for k, v in metrics.items()}
     ok = math.isfinite(out["loss"])
     if ok:
@@ -329,6 +357,15 @@ def train_step(state: TrainState, schedule: DiffusionSchedule, batch: Dict, gene
     state.step += 1
     out["nan_skipped"] = 0.0 if ok else 1.0
     return out
+
+
+@torch.no_grad()
+def _all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> list[torch.Tensor]:
+    """The tensors summed over ``group``: one ``all_reduce`` of their
+    float32 concatenation, split back to their shapes and dtypes."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    torch.distributed.all_reduce(flat, group=group)
+    return [part.reshape(t.shape).to(t.dtype) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 @torch.no_grad()

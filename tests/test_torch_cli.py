@@ -251,9 +251,15 @@ def test_csv_round_trip(tmp_path):
     [
         (["--streaming_window", "600", "--length_bucket", "120"],
          "--length_bucket is not supported with --streaming_window"),
-        (["--seq_shards", "2"], "Queue 1 item 13"),
-        (["--attn_impl", "flash_sp"], "Queue 1 item 13"),
+        # --seq_shards runs under torchrun with as many processes (ROADMAP
+        # Queue 1 item 13, sequence-parallel serving), and only with an
+        # attention that shards (the JAX CLI's check)
+        (["--seq_shards", "2"], "--seq_shards 2 runs under torchrun with as many processes; this job has 1"),
+        (["--seq_shards", "2", "--attn_impl", "dense"],
+         "--seq_shards requires the flash_sp attention partitioning rule; drop --attn_impl dense"),
     ],
+    ids=["flags0---length_bucket is not supported with --streaming_window", "flags1-Queue 1 item 13",
+         "flags2-Queue 1 item 13"],
 )
 def test_unported_options_fail_loudly(flags, item):
     with pytest.raises(SystemExit, match=item):
@@ -277,12 +283,14 @@ def test_streaming_refusals_match_the_jax_cli(flags, message):
     "flags,kw",
     [(["--solver", "dpmpp_2m"], {"solver": "dpmpp_2m"}), (["--attn_impl", "flash"], {}),
      (["--length_bucket", "16"], {"length_bucket": 16}),
-     (["--streaming_window", "12", "--streaming_overlap", "3"], {"window_frames": 12, "overlap_frames": 3})],
-    ids=["dpmpp_2m", "attn_flash", "length_bucket", "streaming_window"],
+     (["--streaming_window", "12", "--streaming_overlap", "3"], {"window_frames": 12, "overlap_frames": 3}),
+     (["--attn_impl", "flash_sp"], {})],
+    ids=["dpmpp_2m", "attn_flash", "length_bucket", "streaming_window", "attn_flash_sp"],
 )
 def test_ported_options_run(tmp_path, monkeypatch, flags, kw):
     """``--solver dpmpp_2m`` reaches the sampler, ``--attn_impl flash``
-    routes as ``auto`` and ``--streaming_window`` serves the clip as
+    and, in one process, ``flash_sp`` route as ``auto``,
+    and ``--streaming_window`` serves the clip as
     windows (24 frames as 12-frame windows at 0, 9 and 12): the CSV equals
     the same request made straight through ``SAIDPipeline`` (tiny encoder,
     0.4-s clip, 3 steps)."""

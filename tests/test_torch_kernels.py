@@ -313,6 +313,52 @@ def test_group_norm_split_kernel_is_deterministic(dev, masked):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("shape,groups,act", [((2, 3600, 192), 32, "none"), ((2, 600, 192), 32, "silu"),
+                                              ((1, 1234, 512), 512, "none"), ((3, 37, 192), 32, "silu")])
+def test_group_norm_sharded_stages(dev, dtype, shards, shape, groups, act):
+    """The frame-sharded route's two wrappers, all shards in one process:
+    each shard's partials against ``group_norm_partials_plain`` at the
+    split plan's chunks, each shard's apply over every shard's partials
+    against ``group_norm_join_plain`` on the same partials, and the joined
+    shards against the unsharded twin."""
+    if shape[1] % shards:
+        shape = (shape[0], shape[1] - shape[1] % shards, shape[2])
+    x = _randn(shape, 9, dev, dtype, 2.0, 30.0)
+    w, bias = _randn((shape[2],), 10, dev, torch.float32), _randn((shape[2],), 11, dev, torch.float32)
+    xs = [part.contiguous() for part in x.chunk(shards, dim=1)]
+    parts = []
+    for part in xs:
+        got = norms.group_norm_stats_kernel(part, groups)
+        plan = norms.split_plan(part.shape[0], part.shape[1], part.shape[2], groups)
+        _assert_close(got, norms.group_norm_partials_plain(part, groups, plan.frames), torch.float32)
+        parts.append(got)
+    parts = torch.cat(parts, dim=3)
+    ys = [norms.group_norm_apply_kernel(part, groups, w, bias, parts, 1e-6, act) for part in xs]
+    for part, y in zip(xs, ys):
+        _assert_close(y, norms.group_norm_join_plain(part, groups, w, bias, parts, 1e-6, act), dtype)
+    _assert_close(torch.cat(ys, dim=1), norms.group_norm_plain(x, groups, w, bias, 1e-6, act), dtype)
+    assert torch.equal(ys[0], norms.group_norm_apply_kernel(xs[0], groups, w, bias, parts, 1e-6, act))
+
+
+def test_group_norm_sharded_router_takes_the_split(dev):
+    """``group_norm_sharded`` on a CUDA tensor launches the two split
+    wrappers once each (a group of one rank gathers nothing) and never the
+    one-launch kernel."""
+    from said_tpu_torch.parallel.mesh import AxisGroup
+
+    x = _randn((2, 600, 192), 12, dev, torch.float32, 2.0, 30.0)
+    w, bias = _randn((192,), 13, dev, torch.float32), _randn((192,), 14, dev, torch.float32)
+    before = (norms.group_norm_stats_kernel.launches, norms.group_norm_apply_kernel.launches,
+              norms.group_norm_kernel.launches)
+    got = norms.group_norm_sharded(x, 32, w, bias, 1e-6, "silu", AxisGroup(None, 0, 1))
+    after = (norms.group_norm_stats_kernel.launches, norms.group_norm_apply_kernel.launches,
+             norms.group_norm_kernel.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0]
+    _assert_close(got, norms.group_norm_plain(x, 32, w, bias, 1e-6, "silu"), torch.float32)
+
+
 def test_group_norm_masked_kernel_refuses_bad_lengths(dev):
     x = _randn((2, 16, 192), 6, dev, torch.float32)
     w = torch.ones(192, device=dev)

@@ -145,8 +145,14 @@ def test_train_cli_flags_follow_the_jax_cli():
     assert mine == want
 
 
-@pytest.mark.parametrize("flag", ["--mesh_data", "--mesh_model", "--mesh_seq"])
-def test_train_cli_refuses_sharding(flag, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 13"):
+@pytest.mark.parametrize("flag,message", [
+    # data parallelism runs under torchrun; one process has one rank, and
+    # the mesh's error is the JAX make_mesh's
+    ("--mesh_data", "mesh 2x1x1 != device count 1"),
+    ("--mesh_model", "ROADMAP Queue 1 item 13b"),
+    ("--mesh_seq", "ROADMAP Queue 1 item 13b"),
+], ids=["--mesh_data", "--mesh_model", "--mesh_seq"])
+def test_train_cli_refuses_sharding(flag, message, tmp_path):
+    with pytest.raises(SystemExit, match=message):
         train_cli.main(["--device", "cpu", flag, "2", "--audio_dir", str(tmp_path), "--coeffs_dir", str(tmp_path),
                         "--output_dir", str(tmp_path)])
