@@ -233,6 +233,31 @@ Phases (any failure exits non-zero; there is no try/except around them):
     the split's stats and apply wrappers at (2,1800,192) with two shards'
     partials built in one process, against their twins and, joined,
     against the unsharded GroupNorm.
+26. Sequence-parallel training: two ranks sharing cuda:0 over gloo, the
+    full-width SAID (random weights, f32, train mode) and one train step at
+    batch 2 of a 4200-frame bucket with 4190 real frames (2100 a rank, the
+    real length ending inside rank 1), against one process on the card with
+    the same batch and draws: the loss within 1e-5 relative, each gradient
+    the optimizer receives within 1e-4 relative L2, all parameters and all
+    EMA after the step together within 1e-6 relative L2, parameters and EMA
+    identical on both ranks. The gathered 4200 keys take K1 with the
+    window's length (past ``DENSE_MAX``) and the blockwise backward (past
+    ``BWD_DENSE_MAX``); launches summed over the ranks exactly: K1 2 × 4,
+    the masked split's stats and apply 2 × 15 each, the encoder's conv_0
+    masked GroupNorm 2 × 1, no one-launch GroupNorm, LayerNorm and the conv
+    2 × one process's; all_gathers a rank and the step's wall time (two
+    ranks sharing one card: a numerics check, not a speed figure).
+27. Tensor-parallel training: two ranks (model axis 2) sharing cuda:0 over
+    gloo, one train step at phase 24b's batch (8 × 300-frame windows in the
+    304-frame bucket, f32) and one validation step, against one process:
+    loss, gradients (gathered whole), parameters and EMA as phase 26's (the
+    clip counts each shard once), replicated parameters and EMA identical
+    on both ranks, the validation loss within 1e-5 relative; launches
+    summed over the ranks exactly twice one process's (activations are
+    replicated), the validation step's K8 at I = 384 a rank. Phase 2 holds
+    K1 with lengths at the SP-train shard (2,2100,6×32) against
+    (2,4200,6×32) keys, the masked stats kernel at a rank's (2,2100,192)
+    with a length inside the shard, and K8 at (8,300,192) with I = 384.
 
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
@@ -304,6 +329,13 @@ SP_FLOOR_FACTOR = 2.0
 # data-parallel training on two ranks against one (phase 24b), as the CPU
 # test holds it: the loss relative, each gradient relative L2
 DP_BOUND = {"loss": 1e-6, "grad": 1e-5}
+# sequence- and tensor-parallel training on two ranks against one (phases
+# 26 and 27): the CPU tests' bounds against the JAX package (loss relative,
+# each gradient relative L2); the parameters and EMA after the step, all
+# tensors together, relative L2
+PT_BOUND = {"loss": 1e-5, "grad": 1e-4, "params": 1e-6}
+# phase 26's window: a 4200-frame bucket, 4190 real frames (2100 a rank)
+SPT_FRAMES, SPT_REAL = 4200, 4190
 # conv_0's output of a 10-s clip, where a "layer" feature extractor runs K7
 LAYER_FEATURE_NORM_SHAPE = (1, 31999, 512)
 # the BCVAE train step, card against CPU (phase 19), f32 with TF32 off:
@@ -554,6 +586,7 @@ def kernel_cases():
             label = f"{tag} ({b}, {t}, {h}x{d})" + ("" if lengths is None else f" lengths {lengths}")
             cases.append(("flash_attention", label, dt, fns, work, tag if i == 0 else None))
         cases += sequence_parallel_cases(dt, tag, isz)
+        cases += parallel_training_cases(dt, tag, isz)
     return cases
 
 
@@ -587,6 +620,47 @@ def sequence_parallel_cases(dt, tag, isz):
            "plain": lambda: norms.group_norm_join_plain(x0, 32, w, bias, parts, 1e-6)}
     cases.append(("group_norm_apply", f"{tag} ({b}, {tq}, 192) G=32, 2 shards' {parts.shape[3]} partials", dt, fns,
                   {"bytes": 2 * n * isz + 2 * parts_bytes + 8 * 192, "flop": 10 * n}, tag))
+    return cases
+
+
+def parallel_training_cases(dt, tag, isz):
+    """Phase 2's cases of sequence- and tensor-parallel training (phases 26
+    and 27): K1 at a rank's shard of the 4200-frame window, its 2100
+    queries against the gathered keys with the window's 4190 real frames;
+    the masked stats kernel at a rank's (2, 2100, 192) with rank 1's 2090
+    real frames; K8 at phase 27's (8, 300, 192) with a rank's I = 384."""
+    b, tq, s, h, d = 2, SPT_FRAMES // 2, SPT_FRAMES, 6, 32
+    q = randn((b, tq, h * d), 56, dt)
+    k, v = randn((b, s, h * d), 57, dt), randn((b, s, h * d), 58, dt)
+    lengths = [SPT_REAL] * b
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    fns = {"kernel": lambda lens=lens: attention.flash_attention_kernel(q, k, v, h, lens),
+           "plain": lambda lens=lens: attention.flash_attention_plain(q, k, v, h, lens),
+           "library": sdpa_thunk(q, k, v, h, lengths)}
+    pairs = h * b * tq * SPT_REAL  # every local query row is live; keys past 4190 masked
+    work = {"bytes": (2 * tq + 2 * s) * b * h * d * isz + 4 * b, "product_flop": 4 * pairs * d, "exp2": pairs}
+    cases = [("flash_attention", f"{tag} SP train shard q ({b}, {tq}, {h}x{d}) k/v ({b}, {s}, {h}x{d}) lengths "
+              f"{lengths}", dt, fns, work, f"sp train {tag}")]
+    x = randn((b, tq, 192), 59, dt, 2.0, 30.0)
+    real = SPT_REAL - tq
+    lens = torch.full((b,), real, dtype=torch.int32, device=DEV)
+    plan = norms.split_plan(b, tq, 192, 32)
+    n = b * real * 192
+    fns = {"kernel": lambda x=x, lens=lens: norms.group_norm_stats_kernel(x, 32, lens),
+           "plain": lambda x=x, lens=lens: norms.group_norm_partials_plain(x, 32, plan.frames, lens)}
+    cases.append(("group_norm_stats", f"{tag} ({b}, {tq}, 192) G=32 masked, {real} real [{plan.chunks} chunks of "
+                  f"{plan.frames}]", dt, fns, {"bytes": n * isz + 3 * b * 32 * plan.chunks * 4 + 4 * b,
+                                              "flop": 4 * n}, f"masked {tag}"))
+    x = randn((8, 300, 192), 60, dt)
+    w1, b1 = randn((768, 192), 61, dt, 0.05), randn((768,), 62, scale=0.1)
+    w2, b2 = randn((192, 384), 63, dt, 0.05), randn((192,), 64, scale=0.1)
+    m = 8 * 300
+    fns = {"kernel": lambda: ffn.geglu_ffn_kernel(x, w1, b1, w2, b2),
+           "plain": lambda: ffn.geglu_ffn_plain(x, w1, b1, w2, b2), "unfused": unfused_geglu_thunk(x, w1, b1, w2, b2)}
+    work = {"bytes": 2 * m * 192 * isz + 3 * 384 * 192 * isz + 4 * (768 + 192),
+            "product_flop": 2 * m * 192 * 768 + 2 * m * 384 * 192}
+    cases.append(("geglu_ffn", f"{tag} TP shard (8, 300, 192) I=384 plan {ffn.geglu_plan(m, dt, inner=384)}", dt, fns,
+                  work, f"tp {tag}"))
     return cases
 
 
@@ -2102,15 +2176,15 @@ def run_ranks(args, label, timeout=900):
 
 
 def rank_main(kind, work):
-    """A rank of phase 24b ("dp") or 25 ("sp"): two ranks share cuda:0 over
-    gloo (NCCL takes one rank a card); its results go to
-    ``<work>/<kind>_rank<r>.pt``."""
+    """A rank of phase 24b ("dp"), 25 ("sp"), 26 ("sptrain") or 27
+    ("tptrain"): two ranks share cuda:0 over gloo (NCCL takes one rank a
+    card); its results go to ``<work>/<kind>_rank<r>.pt``."""
     from said_tpu_torch.parallel.mesh import maybe_init_distributed, shutdown
 
     ctx = maybe_init_distributed("cuda", backend="gloo")
     configure_precision("float32")
     try:
-        out = {"dp": dp_rank, "sp": sp_rank}[kind](ctx, work)
+        out = {"dp": dp_rank, "sp": sp_rank, "sptrain": sptrain_rank, "tptrain": tptrain_rank}[kind](ctx, work)
         torch.save(out, os.path.join(work, f"{kind}_rank{ctx.rank}.pt"))
     finally:
         shutdown(ctx)
@@ -2141,8 +2215,7 @@ def dp_rank(ctx, work):
         if mode == "dp":
             rows = rank_rows(b, data.size, data.index)
             local = {k: v[rows] if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-            metrics = train_step(state, schedule, dict(local, global_batch=b), SlicedGenerator(gen, 0, rows, b),
-                                 data.group)
+            metrics = train_step(state, schedule, dict(local, global_batch=b), SlicedGenerator(gen, 0, rows, b), data)
         else:
             metrics = train_step(state, schedule, batch, gen)
         torch.cuda.synchronize()
@@ -2320,6 +2393,245 @@ def phase_sequence_parallel(record, gpu_line):
                                                 frames=SP_FRAMES, run_s=wall)}))
 
 
+def train_cell(device, model_axis=None):
+    """A train state of the full-width model (f32, random weights from seed
+    0, as ``profile_train.make_cell``), sharded over ``model_axis``, and its
+    dropout generator."""
+    from said_tpu_torch.parallel.tensor import shard_model_
+    from said_tpu_torch.train.said_train import TrainConfig, TrainState
+
+    model = random_init_(build_said_model(dtype="float32"), seed=0).to(device)
+    shard_model_(model, model_axis)
+    return TrainState(model, TrainConfig()), torch.Generator(device=device).manual_seed(0)
+
+
+def captured_step(state, schedule, inputs, gen, group, axes=()):
+    """One ``train_step`` with the launch counters zeroed just before it and
+    read just after: the loss, the gradients the optimizer receives (whole,
+    on the CPU), the host ms (synchronised), and the collectives of
+    ``axes`` (count, host seconds)."""
+    from said_tpu_torch.train.said_train import train_step
+
+    seen = []
+    update = state.optimizer.update
+    state.optimizer.update = lambda grads: (seen.append(grads), update(grads))[1]
+    for axis in axes:
+        axis.calls, axis.seconds = 0, 0.0
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = train_step(state, schedule, inputs, gen, group)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    return {"loss": metrics["loss"], "nan_skipped": metrics["nan_skipped"], "ms": ms, "launches": launches,
+            "grads": whole_of(state, dict(zip(state.params, seen[0]))),
+            "collectives": sum(a.calls for a in axes), "collective_s": sum(a.seconds for a in axes)}
+
+
+def whole_of(state, named):
+    """Whole tensors (gathered over the model axis), on the CPU."""
+    from said_tpu_torch.parallel.tensor import gather_state_dict
+
+    tp = state.tensor_parallel
+    if tp is not None:
+        named = gather_state_dict(named, tp.plan, tp.group)
+    return {n: t.detach().cpu() for n, t in named.items()}
+
+
+def after_step(state):
+    """The parameters and EMA after a step: whole, and this rank's own."""
+    return {"params": whole_of(state, state.params), "ema": whole_of(state, state.ema),
+            "local_params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "local_ema": {n: e.cpu() for n, e in state.ema.items()}}
+
+
+def sp_train_batch():
+    """Phase 26's batch (numpy): 2 rows of a 4200-frame bucket with 4190
+    real frames and spec-augment masks, as the train CLI builds it."""
+    from said_tpu_torch.models.wav2vec2 import compute_time_mask_indices
+
+    rng = np.random.default_rng(26)
+    n = SPT_REAL * SR // FPS
+    wave = process_audio(0.1 * rng.standard_normal((2, n)).astype(np.float32))
+    wave = np.pad(wave, ((0, 0), (0, -(-SPT_FRAMES * SR // FPS) - n)))
+    coeffs = np.pad(rng.uniform(0, 1, (2, SPT_REAL, 32)).astype(np.float32),
+                    ((0, 0), (0, SPT_FRAMES - SPT_REAL), (0, 0)))
+    mask = np.pad(compute_time_mask_indices((2, SPT_REAL), rng=rng), ((0, 0), (0, SPT_FRAMES - SPT_REAL)))
+    return {"waveform": wave, "coeffs": coeffs, "cond": rng.uniform(size=2) > 0.1, "mask_time_indices": mask,
+            "input_length": n}
+
+
+def sptrain_rank(ctx, work):
+    """Phase 26 on one rank: one train step of the full-width SAID on its
+    2100 frames of the 4200-frame window, then on rank 0 the same step of
+    one process on the whole window."""
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from said_tpu_torch.parallel.seq import frames_of
+
+    mesh = make_mesh(MeshConfig(data=1, seq=ctx.world), ctx)
+    mesh.seq.timed = mesh.data_seq.timed = True
+    schedule = DiffusionSchedule.create(1000)
+    batch = sp_train_batch()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(ctx.device)
+
+    out = {}
+    for mode in ("sp", "one") if ctx.rank == 0 else ("sp",):
+        seq = mesh.seq if mode == "sp" else None
+        frames = frames_of(SPT_FRAMES, seq) if seq else slice(None)
+        inputs = {"waveform": dev(batch["waveform"]), "coeffs": dev(batch["coeffs"][:, frames]),
+                  "cond": dev(batch["cond"]), "std": None, "blendshape_delta": None,
+                  "mask_time_indices": dev(batch["mask_time_indices"]), "window_real": SPT_REAL,
+                  "input_length": batch["input_length"], "seq_group": seq}
+        state, gen = train_cell(ctx.device)
+        out[mode] = captured_step(state, schedule, inputs, gen, mesh.data_seq if seq else None,
+                                  (mesh.seq, mesh.data_seq) if seq else ())
+        out[mode].update(after_step(state))
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def tptrain_rank(ctx, work):
+    """Phase 27 on one rank: one train step and one validation step (with
+    the EMA weights, as the CLI validates) of the full-width SAID sharded
+    over a model axis of the two ranks, at profile_train's batch; then on
+    rank 0 the same of one process."""
+    from said_tpu_torch import profile_train
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from said_tpu_torch.train.said_train import eval_step
+
+    mesh = make_mesh(MeshConfig(data=1, model=ctx.world), ctx)
+    mesh.model.timed = True
+    schedule = DiffusionSchedule.create(1000)
+    batch = profile_train.make_batch(ctx.device)
+    out = {}
+    for mode in ("tp", "one") if ctx.rank == 0 else ("tp",):
+        state, gen = train_cell(ctx.device, mesh.model if mode == "tp" else None)
+        out[mode] = captured_step(state, schedule, batch, gen, None, (mesh.model,) if mode == "tp" else ())
+        out[mode].update(after_step(state))
+        out[mode]["sharded"] = sorted(state.tensor_parallel.plan) if mode == "tp" else []
+        zero_launches()
+        with state.ema_weights():
+            out[mode]["eval"] = eval_step(state.model, schedule, batch, state.config,
+                                          torch.Generator(device=ctx.device).manual_seed(1))
+        torch.cuda.synchronize()
+        out[mode]["eval_launches"] = read_launches()
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_parallel_step(label, got, peer, want, identical):
+    """A two-rank train step against one process's: (loss relative, worst
+    gradient relative L2, nonzero gradients, {"params", "ema"}: all tensors
+    together, relative L2). Fails on the bounds, on ranks that clip
+    different gradients, and on ranks whose parameters or EMA named in
+    ``identical`` differ after the step."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    worst, nonzero = 0.0, 0
+    for name, w in want["grads"].items():
+        check(torch.equal(got["grads"][name], peer["grads"][name]), f"{label}: ranks clip different gradients {name}")
+        scale = float(torch.linalg.vector_norm(w))
+        if scale > 0:
+            nonzero += 1
+            worst = max(worst, float(torch.linalg.vector_norm(got["grads"][name] - w)) / scale)
+    after = {key: rel_l2(torch.cat([got[key][n].reshape(-1) for n in want[key]]),
+                         torch.cat([w.reshape(-1) for w in want[key].values()])) for key in ("params", "ema")}
+    for key in ("local_params", "local_ema"):
+        for n in identical:
+            check(torch.equal(got[key][n], peer[key][n]), f"{label}: the ranks' {key} {n} differ after the step")
+    check(got["nan_skipped"] == 0.0 and np.isfinite(got["loss"]) and loss_rel <= PT_BOUND["loss"],
+          f"{label}: loss {got['loss']} against {want['loss']}")
+    check(nonzero > 0.9 * len(want["grads"]) and worst <= PT_BOUND["grad"], f"{label}: gradient relative L2 {worst}")
+    check(max(after.values()) <= PT_BOUND["params"], f"{label}: parameters and EMA after the step {after}")
+    return loss_rel, worst, nonzero, after
+
+
+def phase_sequence_parallel_training(record, gpu_line):
+    print(f"\n== phase 26: sequence-parallel training, two ranks sharing cuda:0 over gloo: one full-width train step "
+          f"(f32) at batch 2 of a {SPT_FRAMES}-frame bucket with {SPT_REAL} real frames ({SPT_FRAMES // 2} a rank), "
+          f"against one process ==")
+    work = os.path.join(WORK, "sptrain")
+    os.makedirs(work, exist_ok=True)
+    wall = run_ranks(["--nproc_per_node", "2", os.path.join(REPO, "chip_smoke.py"), "--rank", "sptrain", work],
+                     "26: two ranks over gloo on one card")
+    r0, r1 = (torch.load(os.path.join(work, f"sptrain_rank{r}.pt"), weights_only=False) for r in range(2))
+    sp, one = r0["sp"], r0["one"]
+    loss_rel, worst, nonzero, after = compare_parallel_step("26", sp, r1["sp"], one, list(one["local_params"]))
+    launches = {k: sp["launches"][k] + r1["sp"]["launches"][k] for k in KERNELS}
+    want = {"group_norm": 0, "group_norm_masked": 2 * 1, "layer_norm": 2 * one["launches"]["layer_norm"],
+            "geglu_ffn": 0, "strided_conv_gelu": 2 * one["launches"]["strided_conv_gelu"], "flash_attention": 2 * 4,
+            "group_norm_stats": 2 * 15, "group_norm_apply": 2 * 15}
+    shares = [r["sp"]["collective_s"] / (r["sp"]["ms"] / 1e3) for r in (r0, r1)]
+    print(f"26: loss {sp['loss']:.7f} (one process {one['loss']:.7f}, relative {loss_rel:.2e}, bound "
+          f"{PT_BOUND['loss']:.0e}); worst gradient relative L2 {worst:.2e} over {nonzero} nonzero tensors (bound "
+          f"{PT_BOUND['grad']:.0e}); parameters / EMA after the step against one process {after['params']:.2e} / "
+          f"{after['ema']:.2e} (bound {PT_BOUND['params']:.0e}); parameters and EMA identical on both ranks")
+    print(f"26: launches summed over the ranks {launches} (one process {one['launches']}): K1 with the window's "
+          f"length over the gathered {SPT_FRAMES} keys, the masked split's stats and apply, no one-launch GroupNorm")
+    print(f"26: step ms rank 0 {sp['ms']:.1f}, rank 1 {r1['sp']['ms']:.1f} ({sp['collectives']} all_gathers a rank, "
+          f"{shares[0]:.1%} / {shares[1]:.1%} of the step in them, the card synchronised around each), one process "
+          f"{one['ms']:.1f} (two ranks sharing one card over gloo: a numerics check, not a speed figure); run "
+          f"{wall:.1f} s on {gpu_line}")
+    check(one["launches"]["flash_attention"] == 4 and one["launches"]["group_norm_stats"] == 0,
+          f"26: one process's launches {one['launches']}")
+    check(launches == want, f"26: launch counts {launches} != {want}")
+    for name, n in launches.items():
+        record[name].setdefault("launches_by_request", {})[f"SP train step {SPT_FRAMES} frames 2 ranks"] = n
+    record["flash_attention"]["sp train f32"]["launches"] = launches["flash_attention"]
+    record["group_norm_stats"]["masked f32"]["launches"] = launches["group_norm_stats"]
+    print(json.dumps({"sequence_parallel_training": {
+        "loss_rel": loss_rel, "grad_rel_l2": worst, "after_step_rel_l2": after, "launches": launches,
+        "step_ms": [sp["ms"], r1["sp"]["ms"]], "one_process_ms": one["ms"], "all_gathers_per_rank": sp["collectives"],
+        "collective_share": shares, "device": gpu_line, "ranks": 2, "backend": "gloo, one card shared",
+        "frames": SPT_FRAMES, "real_frames": SPT_REAL, "run_s": wall}}))
+
+
+def phase_tensor_parallel_training(record, gpu_line):
+    print("\n== phase 27: tensor-parallel training, two ranks (model axis 2) sharing cuda:0 over gloo: one full-width "
+          "train step (f32) at batch 8 of 300-frame windows and one validation step, against one process ==")
+    work = os.path.join(WORK, "tptrain")
+    os.makedirs(work, exist_ok=True)
+    wall = run_ranks(["--nproc_per_node", "2", os.path.join(REPO, "chip_smoke.py"), "--rank", "tptrain", work],
+                     "27: two ranks over gloo on one card")
+    r0, r1 = (torch.load(os.path.join(work, f"tptrain_rank{r}.pt"), weights_only=False) for r in range(2))
+    tp, one = r0["tp"], r0["one"]
+    replicated = [n for n in one["local_params"] if n not in tp["sharded"]]
+    loss_rel, worst, nonzero, after = compare_parallel_step("27", tp, r1["tp"], one, replicated)
+    launches = {k: tp["launches"][k] + r1["tp"]["launches"][k] for k in KERNELS}
+    eval_launches = {k: tp["eval_launches"][k] + r1["tp"]["eval_launches"][k] for k in KERNELS}
+    eval_rel = abs(tp["eval"]["loss"] - one["eval"]["loss"]) / abs(one["eval"]["loss"])
+    print(f"27: {len(tp['sharded'])} sharded tensors, {len(replicated)} replicated trainable tensors identical on "
+          f"both ranks; loss {tp['loss']:.7f} (one process {one['loss']:.7f}, relative {loss_rel:.2e}); worst "
+          f"gradient relative L2 {worst:.2e} over {nonzero} nonzero tensors; parameters / EMA after the step against "
+          f"one process {after['params']:.2e} / {after['ema']:.2e} (bound {PT_BOUND['params']:.0e}); validation "
+          f"loss {tp['eval']['loss']:.7f} (one process {one['eval']['loss']:.7f}, relative {eval_rel:.2e})")
+    print(f"27: launches summed over the ranks, train step {launches} (one process {one['launches']}), validation "
+          f"step {eval_launches} (one process {one['eval_launches']}): K8 at I = 384 a rank")
+    print(f"27: step ms rank 0 {tp['ms']:.1f}, rank 1 {r1['tp']['ms']:.1f} ({tp['collectives']} all_gathers a rank "
+          f"on the model axis), one process {one['ms']:.1f} (two ranks sharing one card over gloo: a numerics "
+          f"check, not a speed figure); run {wall:.1f} s on {gpu_line}")
+    check(eval_rel <= PT_BOUND["loss"], f"27: validation loss {tp['eval']['loss']} against {one['eval']['loss']}")
+    check(launches == {k: 2 * n for k, n in one["launches"].items()}, f"27: train step launches {launches}")
+    check(eval_launches == {k: 2 * n for k, n in one["eval_launches"].items()} and eval_launches["geglu_ffn"] == 8,
+          f"27: validation launches {eval_launches}")
+    for name, n in launches.items():
+        record[name].setdefault("launches_by_request", {})["TP train step 8x300 2 ranks"] = n
+    for name, n in eval_launches.items():
+        record[name].setdefault("launches_by_request", {})["TP validation step 8x300 2 ranks"] = n
+    record["geglu_ffn"]["tp f32"]["launches"] = eval_launches["geglu_ffn"]
+    print(json.dumps({"tensor_parallel_training": {
+        "loss_rel": loss_rel, "grad_rel_l2": worst, "after_step_rel_l2": after, "eval_loss_rel": eval_rel,
+        "launches": launches, "eval_launches": eval_launches, "step_ms": [tp["ms"], r1["tp"]["ms"]],
+        "one_process_ms": one["ms"], "all_gathers_per_rank": tp["collectives"], "device": gpu_line, "ranks": 2,
+        "backend": "gloo, one card shared", "run_s": wall}}))
+
+
 def main():
     os.makedirs(WORK, exist_ok=True)
     print("== phase 1: environment and build ==")
@@ -2383,6 +2695,8 @@ def main():
 
     phase_data_parallel(record, gpu_line)
     phase_sequence_parallel(record, gpu_line)
+    phase_sequence_parallel_training(record, gpu_line)
+    phase_tensor_parallel_training(record, gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)
@@ -2392,7 +2706,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 24b or 25, started by torch.distributed.run
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 24b, 25, 26 or 27, started by torch.distributed.run
         rank_main(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -27,26 +27,40 @@ snapshot and the rest random from ``--seed``); without it the weights are
 random from ``--seed``. An orbax checkpoint directory (a JAX format) is
 refused.
 
-Data-parallel training over several cards: run under ``torchrun`` (one
-process a card; NCCL, or gloo with ``--device cpu``). ``--mesh_data N``
-splits each batch's rows over N ranks (``-1``: the largest count that
-divides the batch and the ranks, ``fit_data_axis``; ranks past it hold no
-rows and stop after set-up); every rank builds the same global batch from
-the seeded loaders and draws every random array at the global shape, and
-the gradients are summed over the ranks before the clip, so N ranks take
-the step one process takes. A batch the data axis does not divide (the
-batch-1 validation) is computed whole on every rank. Rank 0 alone writes
-the metrics, checkpoints and ``.pth`` exports; ``--resume`` loads on
-every rank. Not ported: ``--mesh_model`` and ``--mesh_seq`` > 1.
+Parallel training over several cards: run under ``torchrun`` (one
+process a card; NCCL, or gloo with ``--device cpu``) on a mesh of
+``--mesh_data`` × ``--mesh_model`` × ``--mesh_seq`` ranks, laid out as the
+JAX CLI's mesh:
+
+- ``--mesh_data N`` splits each batch's rows over N ranks (``-1``: the
+  largest count that divides the batch and the ranks left by the other
+  axes, ``fit_data_axis``; ranks past it hold no rows and stop after
+  set-up); a batch the data axis does not divide (the batch-1
+  validation) is computed whole on every rank;
+- ``--mesh_seq N`` splits each window's frames over N ranks (the window
+  buckets become multiples of N, as the JAX CLI makes them: every batch
+  is then a bucketed one); the frozen encoder runs whole on every rank;
+- ``--mesh_model N`` splits the attention heads, the feed-forward widths
+  and the timestep MLP over N ranks (``parallel.tensor``).
+
+Every rank builds the same global batch from the seeded loaders, keeps
+its rows and frames, and draws every random array at the global shape;
+the gradients are summed over the ranks that share a model coordinate
+before the clip, so the mesh takes the step one process takes. Rank 0
+alone writes the metrics, checkpoints and ``.pth`` exports, whole
+tensors gathered over the model axis; ``--resume`` loads them whole on
+every rank, which keeps its shards.
 
     python -m said_tpu_torch.cli.train --audio_dir BlendVOCA/audio \\
         --coeffs_dir BlendVOCA/blendshape_coeffs --output_dir output
     torchrun --nproc_per_node 4 -m said_tpu_torch.cli.train --mesh_data 4 ...
+    torchrun --nproc_per_node 4 -m said_tpu_torch.cli.train --mesh_data 1 --mesh_model 2 --mesh_seq 2 ...
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -77,6 +91,8 @@ from said_tpu_torch.parallel.mesh import (
     rank_rows,
     shutdown,
 )
+from said_tpu_torch.parallel.seq import frames_of, sharded
+from said_tpu_torch.parallel.tensor import shard_model_
 from said_tpu_torch.train.said_train import TrainConfig, TrainState, eval_step, train_step
 from said_tpu_torch.utils.hf_snapshot import snapshot_file
 
@@ -130,10 +146,6 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    for flag in ("mesh_model", "mesh_seq"):
-        if getattr(args, flag) > 1:
-            raise SystemExit(f"--{flag} > 1 is not ported to said_tpu_torch yet: "
-                             "ROADMAP Queue 1 item 13b (tensor and sequence-parallel training)")
     if args.init_weights and os.path.isdir(args.init_weights) and snapshot_file(args.init_weights) is None:
         raise SystemExit("--init_weights " + ORBAX_REFUSAL.format(path=args.init_weights))
 
@@ -149,6 +161,11 @@ def main(argv=None) -> None:
     add_arguments(parser)
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.mesh_seq > 1:
+        # every padded window (train and validation buckets) splits evenly
+        # over the seq axis (said_tpu/cli/train.py:157-165)
+        args.window_bucket = math.lcm(max(args.window_bucket, 1), args.mesh_seq)
+        args.val_window_bucket = math.lcm(max(args.val_window_bucket, 1), args.mesh_seq)
     ctx = maybe_init_distributed(args.device)
     try:
         _train(args, ctx)
@@ -166,7 +183,7 @@ def _train(args: argparse.Namespace, ctx) -> None:
     if not mesh.active:
         print(f"rank {ctx.rank}: past the {data_axis}-rank data axis, holds no rows")
         return
-    data = mesh.data
+    data, seq = mesh.data, mesh.seq
     writer_rank = ctx.rank == 0
 
     def log(msg):
@@ -179,6 +196,7 @@ def _train(args: argparse.Namespace, ctx) -> None:
                              remat=bool(args.gradient_checkpointing))
     load_said_weights(model, args.init_weights, seed=args.seed)
     model.to(device)
+    shard_model_(model, mesh.model)  # whole weights in, this rank's shards kept
     schedule = DiffusionSchedule.create(model.diffusion_steps, args.prediction_type)
 
     std = None
@@ -216,13 +234,15 @@ def _train(args: argparse.Namespace, ctx) -> None:
 
     def prepare_batch(batch, bucket_size=None, augment=True):
         """A collated numpy batch → ``said_loss``'s keyword inputs on the
-        device, this rank's rows of it, and the generator to draw with
-        (data parallel: the global batch's draws, sliced to the rows).
-        The window is padded up to the next multiple of ``bucket_size``
-        (default ``--window_bucket``) and the real lengths go along, so
-        the masked model and losses see an unpadded batch; the waveform
-        is normalised over its real samples first. Spec-augment's masks
-        are drawn for the global batch."""
+        device, this rank's rows and frames of it, the generator to draw
+        with (data parallel: the global batch's draws, sliced to the rows;
+        ``said_loss`` cuts the frames) and the group to sum the gradients
+        over. The window is padded up to the next multiple of
+        ``bucket_size`` (default ``--window_bucket``) and the real lengths
+        go along, so the masked model and losses see an unpadded batch;
+        the waveform is normalised over its real samples first.
+        Spec-augment's masks are drawn for the global batch. The waveform
+        and the masks stay whole (the encoder runs whole)."""
         if bucket_size is None:
             bucket_size = args.window_bucket
         coeffs = batch.blendshape_coeffs
@@ -243,24 +263,26 @@ def _train(args: argparse.Namespace, ctx) -> None:
         n = wave_np.shape[0]
         rows = rank_rows(n, data.size, data.index)
         split = rows != slice(0, n)
+        frames = frames_of(coeffs.shape[1], seq) if sharded(seq) else slice(None)
 
         def dev(a, dtype=None):
-            return None if a is None else torch.from_numpy(np.asarray(a[rows], dtype)).to(device)
+            return None if a is None else torch.from_numpy(np.ascontiguousarray(a[rows], dtype)).to(device)
 
         inputs = {
             "waveform": dev(wave_np),
-            "coeffs": dev(coeffs, np.float32),
+            "coeffs": dev(coeffs[:, frames], np.float32),
             "cond": dev(batch.cond),
             "std": std,
             "blendshape_delta": dev(batch.blendshape_delta, np.float32),
             "mask_time_indices": dev(mask_time),
             "window_real": ws_real if dynamic else None,
             "input_length": wave_real if dynamic else None,
+            "seq_group": seq,
         }
         if not split:
-            return inputs, generator, None
+            return inputs, generator, seq
         inputs["global_batch"] = n
-        return inputs, SlicedGenerator(generator, 0, rows, n), data.group
+        return inputs, SlicedGenerator(generator, 0, rows, n), mesh.data_seq
 
     for epoch in range(1, args.epochs + 1):
         t0 = time.time()
@@ -283,7 +305,7 @@ def _train(args: argparse.Namespace, ctx) -> None:
                     for batch in prefetch(val_loader):
                         # batch 1: whole on every rank, which keeps its generator in step
                         inputs, _, _ = prepare_batch(batch, bucket_size=args.val_window_bucket, augment=False)
-                        metrics = eval_step(model, schedule, inputs, config, generator)
+                        metrics = eval_step(model, schedule, inputs, config, generator, seq)
                         bsz = len(batch.waveform)
                         for k, v in metrics.items():
                             v_totals[k] = v_totals.get(k, 0.0) + v * bsz
@@ -291,14 +313,17 @@ def _train(args: argparse.Namespace, ctx) -> None:
             logs.update({f"Validation/{k}": v / v_count for k, v in v_totals.items()})
 
         log(f"epoch {epoch}: " + ", ".join(f"{k}={v:.5f}" for k, v in logs.items()))
-        if not writer_rank:
-            continue
-        writer.log(logs, epoch)
-        if epoch % args.save_period == 0:
-            path = save_train_state(os.path.join(args.output_dir, "ckpt"), state, epoch)
-            print(f"saved train state → {path}")
-            if args.export_pth:
-                save_pth(state.export_state_dict(), os.path.join(args.output_dir, f"{epoch}.pth"))
+        if writer_rank:
+            writer.log(logs, epoch)
+        # whole tensors: every rank of the model axis takes part in the gather
+        if epoch % args.save_period == 0 and (writer_rank or state.tensor_parallel is not None):
+            train_state = state.state_dict()
+            export = state.export_state_dict() if args.export_pth else None
+            if writer_rank:
+                path = save_train_state(os.path.join(args.output_dir, "ckpt"), train_state, epoch)
+                print(f"saved train state → {path}")
+                if export is not None:
+                    save_pth(export, os.path.join(args.output_dir, f"{epoch}.pth"))
 
     if writer is not None:
         writer.close()

@@ -109,7 +109,7 @@ def main(argv=None) -> VAETrainState:
             writer.log(logs, epoch)
             print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.5f}" for k, v in logs.items()))
             if epoch % args.save_period == 0:
-                path = save_train_state(os.path.join(args.output_dir, "ckpt"), state, epoch)
+                path = save_train_state(os.path.join(args.output_dir, "ckpt"), state.state_dict(), epoch)
                 print(f"saved train state → {path}")
     finally:
         writer.close()

@@ -22,12 +22,14 @@ from said_tpu_torch.train.said_train import TrainState
 STATE_FILE = "train_state.pt"
 
 
-def save_train_state(ckpt_dir: str, state: TrainState, epoch: int) -> str:
-    """Save ``state`` to ``<ckpt_dir>/<epoch>/train_state.pt``; returns the
-    checkpoint directory."""
+def save_train_state(ckpt_dir: str, state_dict: dict, epoch: int) -> str:
+    """Save a train state's ``state_dict()`` to
+    ``<ckpt_dir>/<epoch>/train_state.pt``; returns the checkpoint directory.
+    (The caller takes the ``state_dict``: under tensor parallelism every
+    rank of the model axis takes part in it, and one rank writes.)"""
     path = os.path.join(os.path.abspath(ckpt_dir), str(epoch))
     os.makedirs(path, exist_ok=True)
-    torch.save(state.state_dict(), os.path.join(path, STATE_FILE))
+    torch.save(state_dict, os.path.join(path, STATE_FILE))
     return path
 
 

@@ -19,6 +19,7 @@ from torch import nn
 from said_tpu_torch.ops.norms import group_norm, group_norm_masked, group_norm_sharded, layer_norm
 from said_tpu_torch.parallel.mesh import rand
 from said_tpu_torch.parallel.seq import halo, sharded
+from said_tpu_torch.parallel.tensor import reduce
 
 
 class Derived:
@@ -61,8 +62,8 @@ class Dropout(nn.Dropout):
 
 def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
     """Dropout with rate ``p`` drawn from ``generator`` (None: identity); a
-    ``parallel.mesh.SlicedGenerator`` draws the global batch's mask and
-    keeps this rank's rows."""
+    ``parallel.mesh.SlicedGenerator`` draws the global mask and keeps this
+    rank's rows, frames, heads or columns."""
     if generator is None or p == 0.0:
         return x
     keep = rand(x.shape, generator, x.device) >= p
@@ -75,15 +76,21 @@ class Frames:
     int) or one per row ((B,) numpy array or int tensor).
 
     ``lengths`` is the (B,) int32 tensor on the device that the masked
-    kernels take (for one length, ``batch`` rows of it; ``lens(b)`` gives
-    the first b); ``zero(v)`` multiplies v by the 0/1 frame mask, in the
-    compute dtype, as the JAX package zeroes pads. Building one uploads a
-    per-row numpy array once; an int or a device tensor needs no copy.
+    kernels take (for one length, ``batch`` rows of it; ``key_lens(b)``
+    gives the first b); ``zero(v)`` multiplies v by the 0/1 frame mask, in
+    the compute dtype, as the JAX package zeroes pads. Building one uploads
+    a per-row numpy array once; an int or a device tensor needs no copy.
+
+    Frames sharded over a seq axis: the T frames start at ``offset`` of the
+    window, and ``real`` counts the window's. The mask is by window frame;
+    ``lens(b)`` are this block's real frames (``real − offset`` within
+    [0, T]: the masked GroupNorm's statistics), ``key_lens(b)`` the
+    window's (keys gathered from every rank).
     """
 
-    def __init__(self, real, batch: int, t: int, device: torch.device, dtype: torch.dtype):
+    def __init__(self, real, batch: int, t: int, device: torch.device, dtype: torch.dtype, offset: int = 0):
         self.real = real
-        frame = torch.arange(t, device=device)
+        frame = torch.arange(offset, offset + t, device=device)
         if getattr(real, "ndim", 0) == 1:
             self.lengths = torch.as_tensor(real, device=device).to(torch.int32).contiguous()
             mask = frame[None, :] < self.lengths[:, None]
@@ -91,9 +98,13 @@ class Frames:
             n = int(real)
             self.lengths = torch.full((batch,), n, dtype=torch.int32, device=device)
             mask = (frame < n)[None]
+        self.local = self.lengths if offset == 0 else (self.lengths - offset).clamp(0, t).to(torch.int32)
         self.mask = mask[:, :, None].to(dtype)
 
     def lens(self, b: int) -> torch.Tensor:
+        return self.local[:b]
+
+    def key_lens(self, b: int) -> torch.Tensor:
         return self.lengths[:b]
 
     def zero(self, v: torch.Tensor) -> torch.Tensor:
@@ -106,7 +117,13 @@ class Frames:
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in the input's dtype (flax ``nn.Dense(dtype)``)."""
+    """``nn.Linear`` computing in the input's dtype (flax ``nn.Dense(dtype)``).
+
+    Row-parallel (``reduce_group`` set by ``parallel.tensor.shard_model_``):
+    the weight holds this rank's block of the inputs, the partial outputs
+    are summed over the model axis and the bias is added once, after."""
+
+    reduce_group = None
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -119,7 +136,10 @@ class Dense(nn.Linear):
         return None if self.bias is None else self._bias(self.bias, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight_as(x.dtype), self.bias_as(x.dtype))
+        if self.reduce_group is None:
+            return F.linear(x, self.weight_as(x.dtype), self.bias_as(x.dtype))
+        y = reduce(F.linear(x, self.weight_as(x.dtype)), self.reduce_group)
+        return y if self.bias is None else y + self.bias_as(x.dtype)
 
 
 class Conv1dSame(nn.Module):
@@ -157,7 +177,8 @@ class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics over (B, T, C), optional fused SiLU
     (the JAX ``GroupNorm32``); runs through the GroupNorm kernel router, the
     masked one when (B,) int32 real ``lengths`` are given, or the
-    frame-sharded one on frames sharded over ``seq_group``."""
+    frame-sharded one on frames sharded over ``seq_group`` (with
+    ``lengths``: the real frames of this rank's block)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, act: str = "none"):
         super().__init__()
@@ -167,9 +188,8 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None, seq_group=None) -> torch.Tensor:
         if sharded(seq_group):
-            if lengths is not None:
-                raise ValueError("the frame-sharded GroupNorm takes no lengths (SP excludes length buckets)")
-            return group_norm_sharded(x, self.num_groups, self.weight, self.bias, self.eps, self.act, seq_group)
+            return group_norm_sharded(x, self.num_groups, self.weight, self.bias, self.eps, self.act, seq_group,
+                                      lengths)
         if lengths is None:
             return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act)
         return group_norm_masked(x, self.num_groups, self.weight, self.bias, lengths, self.eps, self.act)

@@ -41,7 +41,7 @@ from said_tpu_torch.models.unet1d import (
 )
 from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 from said_tpu_torch.parallel.mesh import SlicedGenerator, randn
-from said_tpu_torch.parallel.seq import frames_of, gather, sharded
+from said_tpu_torch.parallel.seq import frames_of, gather, shard_frames, sharded
 
 SAMPLING_RATE = 16000
 
@@ -125,10 +125,21 @@ class SAID(nn.Module):
         follows. ``mask_time_indices`` (B, num_frames) bool applies
         spec-augment; ``generator`` runs the encoder in train mode
         (dropout and layerdrop drawn from it), None deterministic.
-        ``seq_group``: the embedding of this rank's frames of the clip."""
+
+        ``seq_group``: the embedding of this rank's frames of the clip.
+        Serving runs the encoder on them (frame-sharded); with real frame
+        counts, spec-augment or a generator (sequence-parallel training,
+        whose frozen encoder takes none of them frame-sharded) the encoder
+        runs whole on every rank, on the replicated waveform, and the
+        embedding is cut to the rank's frames. The trainable projection
+        follows, on the rank's frames."""
+        whole = sharded(seq_group) and not (num_frames_real is None and mask_time_indices is None
+                                             and generator is None)
         with torch.no_grad():
             feats = self.audio_encoder(waveform, num_frames, input_length, num_frames_real, mask_time_indices,
-                                       generator, seq_group)
+                                       generator, None if whole else seq_group)
+        if whole:
+            feats = shard_frames(feats, seq_group)
         if self.audio_proj_layer is not None:
             feats = self.audio_proj_layer(feats)
         return feats

@@ -19,14 +19,27 @@ the deterministic sampling path, the fused GEGLU kernel included. With
 backward pass (``torch.utils.checkpoint``), its dropout masks drawn
 again from the generator state they were first drawn from.
 
-Sequence-parallel serving (``seq_group``, a ``parallel.mesh.AxisGroup``):
+Sequence parallelism (``seq_group``, a ``parallel.mesh.AxisGroup``):
 the (B, T/n, ·) activations are this rank's frames of the clip; the k=3
 convs take a halo of one frame from the neighbouring ranks, every
 GroupNorm joins its statistics across the ranks
 (``ops.norms.group_norm_sharded``), self-attention gathers K and V
-(``ops.attention.flash_attention_flat_sp``), and the cross-attention
-gathers the context and keeps the band rows of the local frames;
-LayerNorm and the GEGLU feed-forward act on each row and run unchanged.
+(``ops.attention.flash_attention_flat_sp``; with a window's real length,
+``self_attention`` over them with the window's lengths), and the
+cross-attention gathers the context and keeps the band rows of the local
+frames; LayerNorm and the GEGLU feed-forward act on each row and run
+unchanged. Every collective is differentiable, so a rank's loss on its
+frames backpropagates to every rank (training: dropout drawn at the
+window's shape and sliced to the rank's frames).
+
+Tensor parallelism (``parallel.tensor.shard_model_``): the attention
+layers hold their rank's heads, the feed-forward its block of GEGLU's
+(a, g) columns and the timestep MLP its block of hidden units; each of
+them takes its input through ``parallel.tensor.enter`` and sums its
+row-parallel output over the model axis (the output ``Dense``'s
+``reduce_group``), so every other activation is replicated. The
+feed-forward's dropout is drawn at the whole width and sliced to the
+rank's columns.
 
 Length-bucketed and mixed-length batches (``seq_len_real``): every
 GroupNorm is the masked one, pads are zeroed before every k=3 conv and
@@ -51,6 +64,7 @@ from said_tpu_torch.ops.attention import banded_attention_cached, flash_attentio
 from said_tpu_torch.ops.ffn import geglu_ffn
 from said_tpu_torch.ops.masks import alignment_band_dynamic, band_gather_indices
 from said_tpu_torch.parallel.seq import gather, sharded
+from said_tpu_torch.parallel.tensor import block_draws, enter, reduce
 
 KVCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -104,7 +118,11 @@ class ResBlock1D(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention: dense self-attention (``context`` None) or
-    alignment-banded cross-attention over ``context`` or a K/V cache."""
+    alignment-banded cross-attention over ``context`` or a K/V cache.
+    ``heads`` and ``model_group``: this rank's heads, of a layer sharded
+    over a model axis."""
+
+    model_group = None
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int, dropout: float = 0.0):
         super().__init__()
@@ -124,16 +142,18 @@ class CrossAttention(nn.Module):
         generator: Optional[torch.Generator] = None,
         seq_group=None,
     ) -> torch.Tensor:
+        x = enter(x, self.model_group)
         q = self.to_q(x)
         if kv_cache is not None:
             out = banded_attention_cached(q, *kv_cache, self.heads)
-        elif context is None and sharded(seq_group):
+        elif context is None and frames is None and sharded(seq_group):
             out = flash_attention_flat_sp(q, self.to_k(x), self.to_v(x), self.heads, seq_group)
         elif context is None:
-            lens = None if frames is None else frames.lens(x.shape[0])
-            out = self_attention(q, self.to_k(x), self.to_v(x), self.heads, lens)
+            lens = None if frames is None else frames.key_lens(x.shape[0])
+            out = self_attention(q, gather(self.to_k(x), seq_group), gather(self.to_v(x), seq_group), self.heads,
+                                 lens)
         else:
-            context = gather(context, seq_group)
+            context = enter(gather(context, seq_group), self.model_group)
             k, v = self.to_k(context), self.to_v(context)
             real = None if frames is None else frames.host()
             idx, valid = band_tables(x.shape[1], k.shape[1], k.device, real=real, seq_group=seq_group)
@@ -176,7 +196,12 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward: the fused GEGLU kernel router, or in train mode
     the unfused form with dropout between the gate and the output
     projection (the JAX ``FeedForward`` with ``deterministic=False``,
-    said_tpu/models/unet1d.py:294)."""
+    said_tpu/models/unet1d.py:294). Sharded over ``model_group``: the
+    projection holds this rank's blocks of a and of g, the kernel runs at
+    that width with no output bias, and the bias is added after the sum
+    over the ranks."""
+
+    model_group = None
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
@@ -187,10 +212,15 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         p, o = self.net[0].proj, self.net[2]
+        group = self.model_group
+        x = enter(x, group)
         if generator is None:
-            return geglu_ffn(x, p.weight_as(x.dtype), p.bias, o.weight_as(x.dtype), o.bias)
+            if group is None:
+                return geglu_ffn(x, p.weight_as(x.dtype), p.bias, o.weight_as(x.dtype), o.bias)
+            y = geglu_ffn(x, p.weight_as(x.dtype), p.bias, o.weight_as(x.dtype), torch.zeros_like(o.bias))
+            return reduce(y, group) + o.bias_as(x.dtype)
         h, gate = p(x).chunk(2, dim=-1)
-        return o(self.net[1](h * F.gelu(gate), generator))
+        return o(self.net[1](h * F.gelu(gate), block_draws(generator, 2, h.shape[-1], group)))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -276,7 +306,11 @@ class UNet1DConditionModel(nn.Module):
     ``dtype`` is the compute dtype; parameters stay float32. ``dropout``
     is the train-mode rate (the JAX package's 0.1); ``remat`` recomputes
     every ResBlock and spatial transformer in the backward pass.
+    ``model_group``: the timestep MLP's hidden units are split over a model
+    axis (``parallel.tensor``).
     """
+
+    model_group = None
 
     def __init__(
         self,
@@ -345,8 +379,10 @@ class UNet1DConditionModel(nn.Module):
         context (B, S, cross_attention_dim). Returns (B, T, C_out).
 
         ``seq_group``: sample, context and the K/V caches hold this rank's
-        frames of a clip sharded over it (sequence-parallel serving, not
-        with ``seq_len_real`` or ``generator``); so does the result.
+        frames of a clip sharded over it; so does the result. With
+        ``seq_len_real`` it counts the real frames of the whole window;
+        ``generator`` then draws at the window's shape (a
+        ``parallel.mesh.SlicedGenerator`` cut to this rank's frames).
 
         Sampling fast path: ``kv_caches`` (``build_kv_caches``) and a
         precomputed ``emb`` (a row of ``time_embed_table``) replace the
@@ -372,19 +408,17 @@ class UNet1DConditionModel(nn.Module):
         if cfg_fold and getattr(seq_len_real, "ndim", 0) != 0:
             raise ValueError("cfg_fold supports only one seq_len_real for the batch "
                              "(per-row lengths use the unfolded path)")
-        if sharded(seq_group) and (seq_len_real is not None or generator is not None):
-            raise ValueError("the frame-sharded forward is sampling-only and takes no seq_len_real "
-                             "(sequence-parallel training is ROADMAP Queue 1 item 13b)")
         dt = self.dtype
-        b = sample.shape[0]
+        b, t = sample.shape[:2]
         frames = None
         if seq_len_real is not None:
-            frames = Frames(seq_len_real, 2 * b if cfg_fold else b, sample.shape[1], sample.device, dt)
+            offset = seq_group.index * t if sharded(seq_group) else 0
+            frames = Frames(seq_len_real, 2 * b if cfg_fold else b, t, sample.device, dt, offset)
         if emb is None:
             t = torch.atleast_1d(torch.as_tensor(timesteps, device=sample.device))
             if t.shape[0] == 1 and b > 1:
                 t = t.expand(b)
-            e = self.time_embed[0](timestep_embedding(t, self.model_channels).to(dt))
+            e = self.time_embed[0](enter(timestep_embedding(t, self.model_channels).to(dt), self.model_group))
             emb = self.time_embed[2](F.silu(e))
         else:
             emb = emb.to(dt)
@@ -426,7 +460,7 @@ class UNet1DConditionModel(nn.Module):
         if frames is None:
             o = self.out[0](o, seq_group=seq_group)
         else:
-            o = frames.zero(self.out[0](o, frames.lens(o.shape[0])))
+            o = frames.zero(self.out[0](o, frames.lens(o.shape[0]), seq_group))
         o = self.out[2](o, seq_group)
         return o.to(sample.dtype)
 

@@ -35,7 +35,16 @@ the features are cut to this rank's frames; the positional conv takes a
 halo of k/2 frames before and (k−1)/2 after from the neighbouring ranks
 (so the even k's dropped trailing frame is dropped once, at the clip's
 end), attention gathers K and V (``flash_attention_flat_sp``), and the
-row-wise LayerNorms and projections run on the local frames.
+row-wise LayerNorms and projections run on the local frames. Serving only:
+under sequence-parallel training the frozen encoder runs whole on every
+rank (``SAID.get_audio_embedding``).
+
+Tensor parallelism (``parallel.tensor.shard_model_``): each layer's
+attention holds its rank's heads and its feed-forward a block of the
+intermediate units; their inputs pass ``parallel.tensor.enter`` and their
+output projections sum over the model axis. Train-mode dropout of the
+attention probabilities is drawn for every head and sliced to the rank's,
+the activation dropout for every unit and sliced to the rank's columns.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from said_tpu_torch.ops.conv import strided_conv_gelu
 from said_tpu_torch.ops.resample import linear_interp_time, linear_interp_time_dynamic
 from said_tpu_torch.parallel.mesh import unsliced
 from said_tpu_torch.parallel.seq import halo, shard_frames, sharded
+from said_tpu_torch.parallel.tensor import block_draws, enter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +243,8 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
+    model_group = None  # ``heads`` are this rank's where set (parallel.tensor)
+
     def __init__(self, hidden: int, heads: int, attention_dropout: float = 0.0):
         super().__init__()
         self.heads, self.attention_dropout = heads, attention_dropout
@@ -243,18 +255,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, seq_group=None) -> torch.Tensor:
+        x = enter(x, self.model_group)
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if sharded(seq_group):
             out = flash_attention_flat_sp(q, k, v, self.heads, seq_group, lengths)
         elif generator is None:
             out = self_attention(q, k, v, self.heads, lengths)
         else:  # train mode: dense at any length, its probabilities dropped out
+            heads = block_draws(generator, 1, self.heads, self.model_group)
             out = dense_attention(q, k, v, self.heads, lengths,
-                                  probs=lambda p: dropout(p, self.attention_dropout, generator))
+                                  probs=lambda p: dropout(p, self.attention_dropout, heads))
         return self.out_proj(out)
 
 
 class FeedForward(nn.Module):
+    model_group = None  # the dense layers hold this rank's block where set (parallel.tensor)
+
     def __init__(self, hidden: int, intermediate: int):
         super().__init__()
         self.intermediate_dense = Dense(hidden, intermediate)
@@ -262,7 +278,8 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, activation_dropout: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(F.gelu(self.intermediate_dense(x)), activation_dropout, generator)
+        h = F.gelu(self.intermediate_dense(enter(x, self.model_group)))
+        h = dropout(h, activation_dropout, block_draws(generator, 2, h.shape[-1], self.model_group))
         return self.output_dense(h)
 
 

@@ -22,8 +22,18 @@ runs as ``_FlashAttentionFn`` (forward as above) whose backward,
 :734): every key at once up to ``BWD_DENSE_MAX`` keys, in
 ``BWD_BLOCK_K``-key blocks beyond, never a (T, S) tensor past 4096 keys.
 
-Sequence-parallel serving: ``flash_attention_flat_sp`` keeps Q
-frame-sharded and gathers K and V, then routes as above.
+Sequence parallelism: ``flash_attention_flat_sp`` keeps Q frame-sharded
+and gathers K and V, then routes as above. The gathers are
+differentiable (``parallel.seq.gather``), so the gradient of a rank's
+queries against the gathered keys is ``_FlashAttentionFn``'s, and dk, dv
+are summed over the ranks in rank order and sliced back to the rank's
+frames by the gathers' backward. Sequence-parallel training with a
+window's real length takes ``self_attention`` over the gathered K and V
+with the window's lengths: dense up to ``DENSE_MAX`` gathered keys (the
+JAX package's dense key-masked route under ``flash_sp``), K1 with lengths
+beyond; the kernel masks keys by their index in the gathered K/V and
+zeroes only query rows whose index in the rank's block is past the
+length, each of them a padded frame, whose gradient is 0.
 
 Nothing catches a kernel failure to fall back. The TPU router's VMEM
 thresholds (``_fullk_smax``, ``_blocked_blocks``) have no counterpart:
@@ -285,16 +295,17 @@ def flash_attention_flat_sp(
     S = T (on the card the flash kernel, on the CPU its plain version). The
     output is this rank's frames. With no group, or a group of one rank,
     it is ``self_attention``, as in JAX. No runtime lengths (SP serves one
-    long clip, not mixed-length buckets), and no backward yet: an input
-    that needs a gradient raises."""
+    long clip, not mixed-length buckets). Differentiable, as the JAX
+    ``_flash_sp_bwd``: ``_FlashAttentionFn`` of the local queries over the
+    gathered K and V, whose gradients the gathers sum over the ranks."""
     if lengths is not None:
         raise ValueError("flash_sp does not support runtime lengths")
     if group is None or group.size == 1:
         return self_attention(q, k, v, num_heads)
+    k, v = gather(k, group), gather(v, group)
     if needs_grad(q, k, v):
-        raise NotImplementedError("flash_attention_flat_sp has no backward yet: sequence-parallel training is "
-                                  "ROADMAP Queue 1 item 13b")
-    return _flash_route(q, gather(k, group), gather(v, group), num_heads, None)
+        return _FlashAttentionFn.apply(q, k, v, num_heads, None)
+    return _flash_route(q, k, v, num_heads, None)
 
 
 # ------------------------------------------------------------- backward

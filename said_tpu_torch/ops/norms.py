@@ -56,15 +56,17 @@ shape alone (``group_norm_plan``):
   written once. ``group_norm_chunked_plain`` is the plain twin of this
   arithmetic.
 
-Frame-sharded GroupNorm (sequence-parallel serving, ``group_norm_sharded``):
+Frame-sharded GroupNorm (sequence parallelism, ``group_norm_sharded``):
 each rank holds T/n frames of a clip, so the statistics must span every
 rank's frames. It runs the split's two kernels as two wrappers:
-``group_norm_stats_kernel`` writes the rank's partials, which are
-all-gathered over the ``seq`` group, and ``group_norm_apply_kernel`` joins
-all n·K of them (rank, then chunk) and normalises the local frames: its
-count of partials is passed apart from its grid's chunks.
+``group_norm_stats_kernel`` writes the rank's partials (with lengths,
+over its real frames: the masked branch of K6), which are all-gathered
+over the ``seq`` group, and ``group_norm_apply_kernel`` joins all n·K of
+them (rank, then chunk) and normalises the local frames: its count of
+partials is passed apart from its grid's chunks.
 ``group_norm_partials_plain`` / ``group_norm_join_plain`` are the plain
-twins of the two stages, ``group_norm_sharded_plain`` the CPU's route.
+twins of the two stages and the CPU's route. Its backward is ``group_norm_backward`` with the joined statistics, its two
+per-group sums joined across the ranks.
 
 Neither route uses atomics: the result is the same bits on every call.
 
@@ -90,7 +92,7 @@ import torch
 
 from said_tpu_torch import _build
 from said_tpu_torch.ops import needs_grad
-from said_tpu_torch.parallel.seq import gather
+from said_tpu_torch.parallel.seq import all_sum, gather
 
 # triton.language, bound by ``_kernels()`` on the first launch. The kernel
 # bodies below resolve ``tl`` from this module's globals when Triton
@@ -292,11 +294,13 @@ def group_norm_cluster_plain(
     return out.to(x.dtype)
 
 
-def group_norm_partials_plain(x: torch.Tensor, num_groups: int, chunk_t: int | None = None) -> torch.Tensor:
+def group_norm_partials_plain(x: torch.Tensor, num_groups: int, chunk_t: int | None = None,
+                              lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The split's stage 1 in plain PyTorch: (3, B, G, K) float32 partials,
     per (batch, group, chunk of ``chunk_t`` frames; by default one chunk of
     every frame) the count of elements, their sum and their M2 about the
-    chunk's own mean, two-pass. ``group_norm_stats_kernel`` writes the
+    chunk's own mean, two-pass; with (B,) ``lengths``, over the frames
+    before each row's length only. ``group_norm_stats_kernel`` writes the
     same layout."""
     b, t, c = x.shape
     g, cg = num_groups, c // num_groups
@@ -304,7 +308,10 @@ def group_norm_partials_plain(x: torch.Tensor, num_groups: int, chunk_t: int | N
     k = -(-t // chunk_t)
     pad = k * chunk_t - t
     xk = torch.nn.functional.pad(x.float().reshape(b, t, g, cg), (0, 0, 0, 0, 0, pad)).reshape(b, k, chunk_t, g, cg)
-    mk = torch.nn.functional.pad(torch.ones((b, t), device=x.device), (0, pad)).reshape(b, k, chunk_t, 1, 1)
+    real = torch.ones((b, t), device=x.device)
+    if lengths is not None:
+        real = (torch.arange(t, device=x.device)[None, :] < lengths.to(x.device)[:, None]).float()
+    mk = torch.nn.functional.pad(real, (0, pad)).reshape(b, k, chunk_t, 1, 1)
     cnt = (mk.sum(dim=(2, 4)) * cg).expand(b, k, g)
     s = (xk * mk).sum(dim=(2, 4))
     mean = s / cnt.clamp(min=1.0)
@@ -328,11 +335,7 @@ def group_norm_join_plain(
     every divisor clamped to ≥ 1."""
     b, t, c = x.shape
     g = num_groups
-    cnt, s, m2 = parts.float().unbind(0)  # (b, g, P)
-    n = cnt.sum(dim=-1).clamp(min=1.0)
-    mean = s.sum(dim=-1) / n
-    shift = s / cnt.clamp(min=1.0) - mean[..., None]
-    var = (m2 + cnt * shift * shift).sum(dim=-1) / n
+    _, mean, var = _join_stats(parts)
     rstd = 1.0 / torch.sqrt(var + eps)
     xf = x.float().reshape(b, t, g, c // g)
     out = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(b, t, c)
@@ -342,21 +345,15 @@ def group_norm_join_plain(
     return out.to(x.dtype)
 
 
-def group_norm_sharded_plain(
-    x: torch.Tensor,
-    num_groups: int,
-    weight: torch.Tensor,
-    bias: torch.Tensor,
-    eps: float = 1e-5,
-    act: str = "none",
-    group=None,
-) -> torch.Tensor:
-    """GroupNorm of a frame-sharded activation in plain PyTorch (the CPU's
-    route): this rank's partials (one a group, over its frames), gathered
-    from every rank of ``group`` (a ``parallel.mesh.AxisGroup``) in rank
-    order, joined; only the local frames are normalised."""
-    parts = gather(group_norm_partials_plain(x, num_groups), group, dim=3)
-    return group_norm_join_plain(x, num_groups, weight, bias, parts, eps, act)
+def _join_stats(parts: torch.Tensor):
+    """(count, mean, variance), each (B, G), joined from (3, B, G, P)
+    partials in their order by Chan's formula."""
+    cnt, s, m2 = parts.float().unbind(0)  # (b, g, P)
+    n = cnt.sum(dim=-1).clamp(min=1.0)
+    mean = s.sum(dim=-1) / n
+    shift = s / cnt.clamp(min=1.0) - mean[..., None]
+    var = (m2 + cnt * shift * shift).sum(dim=-1) / n
+    return n, mean, var
 
 
 # ------------------------------------------------------------- backwards
@@ -391,6 +388,8 @@ def group_norm_backward(
     eps: float,
     act: str,
     g: torch.Tensor,
+    parts: torch.Tensor | None = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dweight, dbias) of ``group_norm_plain`` (``lengths`` None) or
     ``group_norm_masked_plain`` at x for the output gradient g, in closed
@@ -403,18 +402,27 @@ def group_norm_backward(
     dx_t = rstd · (d_t − m_t/n · (Σ d + x̂_t · Σ d·x̂)), the sums over every
     frame (a padded frame's output is normalised with the real frames'
     statistics, so its gradient reaches them too). SiLU first scales g
-    by its derivative at the norm's output."""
+    by its derivative at the norm's output.
+
+    Frame-sharded (``group_norm_sharded``): x is this rank's frames,
+    ``lengths`` its real ones, ``parts`` the (3, B, G, P) partials of every
+    rank of ``group`` the forward joined: the statistics are joined from
+    them, and Σ d and Σ d·x̂ are summed over the ranks in rank order.
+    dweight and dbias are this rank's share."""
     b, t, c = x.shape
     cg = c // num_groups
     xf = x.float().reshape(b, t, num_groups, cg)
-    if lengths is None:
-        m = None
+    m = None
+    if lengths is not None:
+        lens = lengths.to(device=x.device, dtype=torch.int64)
+        m = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).float()[:, :, None, None]
+    if parts is not None:
+        n, mean, var = (v[:, None, :, None] for v in _join_stats(parts))
+    elif lengths is None:
         n = float(t * cg)
         mean = xf.mean(dim=(1, 3), keepdim=True)
         var = xf.var(dim=(1, 3), keepdim=True, correction=0)
     else:
-        lens = lengths.to(device=x.device, dtype=torch.int64)
-        m = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).float()[:, :, None, None]
         n = (m.sum(dim=1, keepdim=True) * cg).clamp(min=1.0)
         mean = (xf * m).sum(dim=(1, 3), keepdim=True) / n
         var = (((xf - mean) * m) ** 2).sum(dim=(1, 3), keepdim=True) / n
@@ -429,6 +437,8 @@ def group_norm_backward(
     d = gf * wf
     s1 = d.sum(dim=(1, 3), keepdim=True)
     s2 = (d * xhat).sum(dim=(1, 3), keepdim=True)
+    if parts is not None:
+        s1, s2 = all_sum(torch.stack([s1, s2]), group).unbind(0)
     corr = (s1 + xhat * s2) / n
     dx = rstd * (d - (corr if m is None else m * corr))
     dw = (gf * xhat).sum(dim=(0, 1)).reshape(c)
@@ -472,6 +482,27 @@ class _GroupNormFn(torch.autograd.Function):
         num_groups, eps, act = ctx.args
         dx, dw, db = group_norm_backward(x, num_groups, weight, bias, lengths, eps, act, g)
         return dx, None, dw.to(weight.dtype), db.to(bias.dtype), None, None, None
+
+
+class _ShardedGroupNormFn(torch.autograd.Function):
+    """The frame-sharded GroupNorm with a gradient: the route's forward
+    (partials gathered, joined), ``group_norm_backward`` on the joined
+    statistics; saves x, weight, bias, the lengths and the gathered
+    partials."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups, weight, bias, lengths, eps, act, group):
+        ctx.args = (num_groups, eps, act, group)
+        y, parts = _group_norm_sharded_route(x, num_groups, weight, bias, lengths, eps, act, group)
+        ctx.save_for_backward(x, weight, bias, lengths, parts)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, lengths, parts = ctx.saved_tensors
+        num_groups, eps, act, group = ctx.args
+        dx, dw, db = group_norm_backward(x, num_groups, weight, bias, lengths, eps, act, g, parts, group)
+        return dx, None, dw.to(weight.dtype), db.to(bias.dtype), None, None, None, None
 
 
 # --------------------------------------------------------------- routers
@@ -546,23 +577,34 @@ def group_norm_sharded(
     eps: float = 1e-5,
     act: str = "none",
     group=None,
+    lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """GroupNorm(+SiLU) of a frame-sharded (B, T/n, C) activation whose
-    statistics span the frames of every rank of ``group`` (sequence-parallel
-    serving; the JAX package has GSPMD partition ``_group_norm_jnp``). The
-    CPU runs ``group_norm_sharded_plain``; CUDA the split's two Triton
-    kernels: each rank's partials (``group_norm_stats_kernel``) are
+    statistics span the frames of every rank of ``group`` (sequence
+    parallelism; the JAX package has GSPMD partition ``_group_norm_jnp`` and
+    ``_group_norm_masked_jnp``). With (B,) int32 ``lengths`` (this rank's
+    real frames, from 0 to T/n) the statistics cover the real frames only,
+    and every frame is normalised with them. The CPU runs the two stages'
+    plain twins (``group_norm_partials_plain``, ``group_norm_join_plain``);
+    CUDA the split's two Triton kernels: each
+    rank's partials (``group_norm_stats_kernel``, masked with lengths) are
     all-gathered, and ``group_norm_apply_kernel`` joins all of them in one
     fixed order (rank, then chunk) and normalises the local frames. The
     one-launch kernel cannot join statistics across ranks, so this route
-    never takes it. Serving only: an input that needs a gradient raises."""
+    never takes it. Differentiable (``_ShardedGroupNormFn``) where an input
+    needs a gradient."""
     if needs_grad(x, weight, bias):
-        raise NotImplementedError("the frame-sharded GroupNorm has no backward yet: sequence-parallel training is "
-                                  "ROADMAP Queue 1 item 13b")
+        return _ShardedGroupNormFn.apply(x, num_groups, weight, bias, lengths, eps, act, group)
+    return _group_norm_sharded_route(x, num_groups, weight, bias, lengths, eps, act, group)[0]
+
+
+def _group_norm_sharded_route(x, num_groups, weight, bias, lengths, eps, act, group):
+    """(y, the gathered partials) of the frame-sharded GroupNorm."""
     if x.device.type == "cpu":
-        return group_norm_sharded_plain(x, num_groups, weight, bias, eps, act, group)
-    parts = gather(group_norm_stats_kernel(x, num_groups), group, dim=3)
-    return group_norm_apply_kernel(x, num_groups, weight, bias, parts, eps, act)
+        parts = gather(group_norm_partials_plain(x, num_groups, lengths=lengths), group, dim=3)
+        return group_norm_join_plain(x, num_groups, weight, bias, parts, eps, act), parts
+    parts = gather(group_norm_stats_kernel(x, num_groups, lengths), group, dim=3)
+    return group_norm_apply_kernel(x, num_groups, weight, bias, parts, eps, act), parts
 
 
 # ------------------------------------------------------- Triton kernels
@@ -1026,10 +1068,13 @@ def _split_geometry(x: torch.Tensor, num_groups: int, name: str):
     return split_plan(b, t, c, num_groups), _group_geometry(c, num_groups)
 
 
-def group_norm_stats_kernel(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+def group_norm_stats_kernel(x: torch.Tensor, num_groups: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The split's stage 1 alone (``_group_norm_stats``) on a contiguous
     (B, T, C) CUDA tensor: (3, B, G, K) float32 partials, the count, sum and
-    M2 about its own mean of each of the K chunks of ``split_plan``."""
+    M2 about its own mean of each of the K chunks of ``split_plan``; with a
+    contiguous (B,) int32 ``lengths`` on x's device (the masked branch),
+    over each row's frames before its length only (a chunk wholly past it
+    has count 0)."""
     name = "group_norm_stats_kernel"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA tensor, got device {x.device}")
@@ -1037,12 +1082,16 @@ def group_norm_stats_kernel(x: torch.Tensor, num_groups: int) -> torch.Tensor:
         raise ValueError(f"{name}: needs a contiguous float32 or bfloat16 tensor, got {x.dtype}")
     plan, (cg, cg_p, gb, n_gblocks, block_t) = _split_geometry(x, num_groups, name)
     b, t, c = x.shape
+    if lengths is not None and (lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,)
+                                or lengths.device != x.device or not lengths.is_contiguous()):
+        raise ValueError(f"{name}: lengths must be a contiguous ({b},) int32 tensor on {x.device}, "
+                         f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
     parts = torch.empty((3, b, num_groups, plan.chunks), dtype=torch.float32, device=x.device)
     stats, _ = _kernels()
     # unmasked: L is never read (MASKED is a compile-time False)
-    stats[(plan.chunks, b * n_gblocks)](x, x, parts, t, c, num_groups, cg, n_gblocks, plan.chunks, plan.frames,
-                                        b * num_groups * plan.chunks, MASKED=False, GB=gb, CG_P=cg_p,
-                                        BLOCK_T=block_t, num_warps=4)
+    stats[(plan.chunks, b * n_gblocks)](x, x if lengths is None else lengths, parts, t, c, num_groups, cg, n_gblocks,
+                                        plan.chunks, plan.frames, b * num_groups * plan.chunks,
+                                        MASKED=lengths is not None, GB=gb, CG_P=cg_p, BLOCK_T=block_t, num_warps=4)
     group_norm_stats_kernel.launches += 1
     return parts
 

@@ -10,19 +10,21 @@ a rank (a card each on CUDA, as ``torchrun`` starts them):
   where the JAX version reads ``JAX_COORDINATOR_ADDRESS``: NCCL for a
   CUDA device with each rank on ``cuda:LOCAL_RANK``, gloo for the CPU;
 - ``make_mesh`` gives a rank its place on the mesh and the process groups
-  of its ``data`` and ``seq`` axes, in the rank order of the JAX
-  ``make_mesh``: ``np.reshape(ranks, (data, model, seq))``;
+  of its ``data``, ``model`` and ``seq`` axes, in the rank order of the
+  JAX ``make_mesh``: ``np.reshape(ranks, (data, model, seq))``, and of
+  the ranks that share its model coordinate (data × seq), over which the
+  gradients are summed;
 - ``rank_rows`` replaces ``host_local_slice`` / ``put_global``: every rank
   builds the same global batch from the seeded loaders and keeps its own
   rows (all of them where the data axis does not divide the batch, as
   the JAX CLI replicates such a batch);
 - ``SlicedGenerator`` and the draws ``rand``, ``randn``, ``randint``: a
   random array is drawn at the global shape from a generator every rank
-  seeds alike and sliced to the rank's rows or frames, so N ranks draw
-  what one process draws.
+  seeds alike and sliced to the rank's rows, frames, heads or columns, so
+  N ranks draw what one process draws.
 
 Tensor parallelism (the JAX ``param_sharding_rules`` / ``shard_params``)
-is not ported (ROADMAP Queue 1 item 13b).
+is ``parallel.tensor``.
 """
 
 from __future__ import annotations
@@ -145,11 +147,15 @@ class AxisGroup:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A rank's place on a resolved mesh: its ``data`` and ``seq`` axes
-    (None for a rank past the mesh, which holds no rows)."""
+    """A rank's place on a resolved mesh: its ``data``, ``model`` and
+    ``seq`` axes, and ``data_seq``, the ranks that share its model
+    coordinate (data-major, then seq), over which gradients are summed
+    (each None for a rank past the mesh, which holds no rows)."""
 
     data: Optional[AxisGroup]
     seq: Optional[AxisGroup]
+    model: Optional[AxisGroup] = None
+    data_seq: Optional[AxisGroup] = None
 
     @property
     def active(self) -> bool:
@@ -163,9 +169,13 @@ def mesh_ranks(config: MeshConfig) -> np.ndarray:
 
 
 def axis_ranks(config: MeshConfig, axis: str) -> list[list[int]]:
-    """Every group of ranks along ``axis`` ("data", "model" or "seq"), each
-    in its index order; the groups in the order of the other coordinates."""
-    grid = np.moveaxis(mesh_ranks(config), ("data", "model", "seq").index(axis), -1)
+    """Every group of ranks along ``axis`` ("data", "model", "seq", or
+    "data_seq": the ranks of one model coordinate, data-major), each in its
+    index order; the groups in the order of the other coordinates."""
+    grid = mesh_ranks(config)
+    if axis == "data_seq":
+        return [list(map(int, grid[:, m].reshape(-1))) for m in range(config.model)]
+    grid = np.moveaxis(grid, ("data", "model", "seq").index(axis), -1)
     return [list(map(int, row)) for row in grid.reshape(-1, grid.shape[-1])]
 
 
@@ -180,19 +190,19 @@ def make_mesh(config: MeshConfig, ctx: DistContext) -> Mesh:
     n = ctx.world if config.data == -1 else min(config.data * config.model * config.seq, ctx.world)
     cfg = config.resolve(n)
     axes = {}
-    for axis in ("data", "seq"):
-        size = getattr(cfg, axis)
+    for axis in ("data", "model", "seq", "data_seq"):
+        size = cfg.data * cfg.seq if axis == "data_seq" else getattr(cfg, axis)
         axes[axis] = None
         for ranks in axis_ranks(cfg, axis) if size > 1 else []:
             group = dist.new_group(ranks)
             if ctx.rank in ranks:
                 axes[axis] = AxisGroup(group, ranks.index(ctx.rank), size)
     if ctx.rank < n:
-        coords = np.argwhere(mesh_ranks(cfg) == ctx.rank)[0]
-        for axis, i in (("data", 0), ("seq", 2)):
+        data, model, seq = (int(c) for c in np.argwhere(mesh_ranks(cfg) == ctx.rank)[0])
+        for axis, index in (("data", data), ("model", model), ("seq", seq), ("data_seq", data * cfg.seq + seq)):
             if axes[axis] is None:
-                axes[axis] = AxisGroup(None, int(coords[i]), 1)
-    return Mesh(axes["data"], axes["seq"])
+                axes[axis] = AxisGroup(None, index, 1)
+    return Mesh(axes["data"], axes["seq"], axes["model"], axes["data_seq"])
 
 
 def rank_rows(n_rows: int, size: int, index: int) -> slice:
@@ -212,14 +222,19 @@ def rank_rows(n_rows: int, size: int, index: int) -> slice:
 class SlicedGenerator:
     """A ``torch.Generator`` whose arrays are drawn at the global shape, of
     ``size`` along ``dim``, and sliced to ``index`` there: a rank's rows
-    (dim 0) or frames (dim 1). Every rank seeds its generator alike and
+    (dim 0), frames (dim 1), heads (dim 1 of attention probabilities) or
+    feed-forward columns (dim 2). ``generator`` may itself be a
+    ``SlicedGenerator``: its cuts are kept and this one is added (rows and
+    frames of a data × seq mesh). Every rank seeds its generator alike and
     draws the same global shapes in the same order, so the generators stay
     in step and N ranks draw what one process draws. Draws whose shape has
     no such axis (layerdrop's one draw a layer) take ``generator`` itself.
     ``get_state``/``set_state`` (gradient checkpointing) pass through."""
 
-    def __init__(self, generator: Optional[torch.Generator], dim: int, index: slice, size: int):
-        self.generator, self.dim, self.index, self.size = generator, dim, index, size
+    def __init__(self, generator, dim: int, index: slice, size: int):
+        outer = generator.cuts if isinstance(generator, SlicedGenerator) else ()
+        self.generator = unsliced(generator)
+        self.cuts = outer + ((dim, index, size),)
 
     def get_state(self) -> torch.Tensor:
         return self.generator.get_state()
@@ -229,13 +244,25 @@ class SlicedGenerator:
 
     def draw(self, fn, shape: Sequence[int], **kwargs) -> torch.Tensor:
         shape = list(shape)
-        n = self.index.stop - self.index.start
-        if shape[self.dim] != n:
-            raise ValueError(f"a draw of shape {tuple(shape)} does not hold the {n} of {self.size} along dim "
-                             f"{self.dim} this generator slices")
-        shape[self.dim] = self.size
+        for dim, index, size in self.cuts:
+            n = index.stop - index.start
+            if shape[dim] != n:
+                raise ValueError(f"a draw of shape {tuple(shape)} does not hold the {n} of {size} along dim "
+                                 f"{dim} this generator slices")
+            shape[dim] = size
         full = fn(shape, generator=self.generator, **kwargs)
-        return full.narrow(self.dim, self.index.start, n)
+        for dim, index, _ in self.cuts:
+            full = full.narrow(dim, index.start, index.stop - index.start)
+        return full
+
+
+def sliced(generator, dim: int, index: slice, size: int):
+    """``generator`` cut to ``index`` of ``size`` along ``dim`` (a
+    ``SlicedGenerator``); None, or ``generator`` itself where ``index``
+    spans the whole axis."""
+    if generator is None or (index.start == 0 and index.stop == size):
+        return generator
+    return SlicedGenerator(generator, dim, index, size)
 
 
 def unsliced(generator):

@@ -216,9 +216,10 @@ def test_pipeline_refusals_match_jax(kw):
 
 
 def test_flash_attention_flat_sp_refusals():
+    """JAX's refusal of runtime lengths; its gradient, once refused too, is
+    held against dense attention in ``tests/test_torch_seq_parallel_train.py``
+    (``test_flash_attention_flat_sp_gradient_matches_dense``)."""
     q = torch.zeros((1, 8, 64))
     group = AxisGroup(None, 0, 2)
     with pytest.raises(ValueError, match="flash_sp does not support runtime lengths"):
         flash_attention_flat_sp(q, q, q, 2, group, lengths=torch.ones(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
-        flash_attention_flat_sp(q.requires_grad_(), q, q, 2, group)

@@ -146,11 +146,11 @@ def test_train_cli_flags_follow_the_jax_cli():
 
 
 @pytest.mark.parametrize("flag,message", [
-    # data parallelism runs under torchrun; one process has one rank, and
-    # the mesh's error is the JAX make_mesh's
+    # data, tensor and sequence parallelism run under torchrun; one process
+    # has one rank, and the mesh's error is the JAX make_mesh's
     ("--mesh_data", "mesh 2x1x1 != device count 1"),
-    ("--mesh_model", "ROADMAP Queue 1 item 13b"),
-    ("--mesh_seq", "ROADMAP Queue 1 item 13b"),
+    ("--mesh_model", "mesh 1x2x1 != device count 1"),
+    ("--mesh_seq", "mesh 1x1x2 != device count 1"),
 ], ids=["--mesh_data", "--mesh_model", "--mesh_seq"])
 def test_train_cli_refuses_sharding(flag, message, tmp_path):
     with pytest.raises(SystemExit, match=message):

@@ -1,12 +1,14 @@
 """The rank side of the port's multi-rank CPU tests (not a test module).
 
     python -m torch.distributed.run --standalone --nproc_per_node N \\
-        tests/torch_parallel_worker.py {seq,data} <work dir>
+        tests/torch_parallel_worker.py {seq,data,seqtrain,tensor,combined} <work dir>
 
 Each rank joins the gloo process group, runs the cases of its suite and
 saves what it computed to ``<work dir>/<suite>_rank<r>.pt``; the test
 modules (``tests/test_torch_seq_parallel.py``,
-``tests/test_torch_data_parallel.py``) compare those files with the
+``tests/test_torch_data_parallel.py``,
+``tests/test_torch_seq_parallel_train.py``,
+``tests/test_torch_tensor_parallel.py``) compare those files with the
 unsharded port and the JAX package. Inputs come from the seeded makers
 below, which the tests call too. It imports only torch, numpy and the
 port: the JAX package stays in the test process.
@@ -145,9 +147,127 @@ def dp_batch(b, window, seed, bucket=None):
 # ------------------------------------------------------------------ suites
 
 
+def train_batch(seed, b=2, window=21, bucket=24, injected=False):
+    """A bucketed train batch (numpy): ``window`` real frames of ``bucket``
+    (21 of 24: the real length ends inside the second of two frame
+    blocks), spec-augment masks, std reweighting and blendshape deltas;
+    with ``injected``, timesteps and noise too."""
+    from said_tpu_torch.models.wav2vec2 import compute_time_mask_indices
+
+    batch = dp_batch(b, window, seed, bucket=bucket)
+    mask = compute_time_mask_indices((b, window), rng=np.random.default_rng(seed + 1))
+    out = dict(waveform=batch["waveform"], coeffs=batch["coeffs"], cond=batch["cond"],
+               mask_time_indices=np.pad(mask, ((0, 0), (0, bucket - window))), window_real=window,
+               input_length=batch["wave_real"], std=np.linspace(0.5, 2.0, 32).astype(np.float32),
+               blendshape_delta=rand((b, 32, 20, 3), seed + 2))
+    if injected:
+        out.update(timesteps=batch["timesteps"], noise=batch["noise"])
+    return out
+
+
+def loss_inputs(batch, seq=None):
+    """``said_loss``'s keyword inputs (torch) of a ``train_batch``: this
+    rank's frames of the coefficients and the noise where ``seq`` splits
+    them; waveform and masks whole."""
+    from said_tpu_torch.parallel.seq import frames_of, sharded
+
+    frames = frames_of(batch["coeffs"].shape[1], seq) if sharded(seq) else slice(None)
+    skip = ("window_real", "input_length", "coeffs", "noise")
+    kw = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items() if k not in skip}
+    kw.update(coeffs=torch.from_numpy(np.ascontiguousarray(batch["coeffs"][:, frames])),
+              window_real=batch["window_real"], input_length=batch["input_length"], seq_group=seq)
+    if "noise" in batch:
+        kw["noise"] = torch.from_numpy(np.ascontiguousarray(batch["noise"][:, frames]))
+    return kw
+
+
+def load_model(work, mesh=None, remat=False):
+    """The tiny SAID with the test's weights (``said.pth``), sharded over the
+    mesh's model axis."""
+    from said_tpu_torch.models.said import SAID
+    from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from said_tpu_torch.parallel.tensor import shard_model_
+
+    model = SAID(audio_config=Wav2Vec2Config(**DP_AUDIO), remat=remat)
+    model.load_state_dict(torch.load(os.path.join(work, "said.pth"), weights_only=True), strict=True)
+    shard_model_(model, None if mesh is None else mesh.model)
+    return model
+
+
+def _whole(model, named):
+    """Whole tensors of a named dict of ``model``'s shards."""
+    from said_tpu_torch.parallel.tensor import gather_state_dict
+
+    tp = getattr(model, "tensor_parallel", None)
+    return dict(named) if tp is None else gather_state_dict(named, tp.plan, tp.group)
+
+
+def train_steps(work, mesh, batches, remat=False):
+    """Train-mode steps (dropout, layerdrop, drawn timesteps and noise) on
+    ``batches``, on this rank's share under ``mesh`` (None: one process):
+    the losses, each step's gradients as the optimizer receives them
+    (summed over the ranks, before the clip) and the parameters and EMA
+    after, whole; and this rank's own parameters and EMA."""
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.train import said_train
+
+    model = load_model(work, mesh, remat)
+    state = said_train.TrainState(model, said_train.TrainConfig(learning_rate=1e-3))
+    seen = []
+    update = state.optimizer.update
+    state.optimizer.update = lambda grads: (seen.append([g.clone() for g in grads]), update(grads))[1]
+    gen = torch.Generator().manual_seed(54)
+    schedule = DiffusionSchedule.create(1000)
+    losses = []
+    for batch in batches:
+        kw = loss_inputs(batch, None if mesh is None else mesh.seq)
+        metrics = said_train.train_step(state, schedule, kw, gen, None if mesh is None else mesh.data_seq)
+        losses.append(metrics["loss"])
+    names = list(state.params)
+    return {"loss": torch.tensor(losses, dtype=torch.float64),
+            "grads": [_whole(model, dict(zip(names, g))) for g in seen],
+            "params": _whole(model, {n: p.detach().clone() for n, p in state.params.items()}),
+            "ema": _whole(model, state.ema), "local_params": {n: p.detach().clone() for n, p in state.params.items()},
+            "local_ema": {n: e.clone() for n, e in state.ema.items()}}
+
+
+def deterministic_loss_and_grads(work, mesh, batch):
+    """``said_loss`` with train=False and injected timesteps and noise, and
+    its gradients: summed over the ranks of a model coordinate, whole."""
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.parallel.seq import all_sum
+    from said_tpu_torch.train import said_train
+
+    model = load_model(work, mesh)
+    group = None if mesh is None else mesh.data_seq
+    loss, _ = said_train.said_loss(model, DiffusionSchedule.create(1000), config=said_train.TrainConfig(),
+                                   train=False, **loss_inputs(batch, None if mesh is None else mesh.seq))
+    params = said_train.trainable_parameters(model)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = {n: all_sum(torch.zeros_like(p) if g is None else g, group) for (n, p), g in zip(params.items(), grads)}
+    return {"loss": all_sum(loss.detach(), group), "grads": _whole(model, grads)}
+
+
 def _cli_argv(work):
     with open(os.path.join(work, "cli_argv.json")) as f:
         return json.load(f)
+
+
+def _run_train_cli(work):
+    """The train CLI with ``cli_argv.json``'s flags on the tiny model; the
+    files this rank wrote, by writer."""
+    from said_tpu_torch.cli import train as train_cli
+    from said_tpu_torch.models.said import SAID
+    from said_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    writes = []
+    for name in ("save_pth", "save_train_state", "MetricsWriter"):
+        fn = getattr(train_cli, name)
+        setattr(train_cli, name, lambda *a, fn=fn, name=name, **kw: (writes.append(name), fn(*a, **kw))[1])
+    train_cli.build_said_model = lambda prediction_type, feature_dim, dtype, remat: SAID(
+        audio_config=Wav2Vec2Config(**DP_AUDIO), prediction_type=prediction_type, remat=remat)
+    train_cli.main(_cli_argv(work))
+    return writes
 
 
 def _seq_suite(ctx, work):
@@ -248,7 +368,7 @@ def _data_suite(ctx, work):
                 kw.update(window_real=21, input_length=batch["wave_real"])
             if mode == "dp":
                 kw["global_batch"] = b
-                metrics = said_train.train_step(state, schedule, kw, SlicedGenerator(gen, 0, rows, b), data.group)
+                metrics = said_train.train_step(state, schedule, kw, SlicedGenerator(gen, 0, rows, b), data)
             else:
                 metrics = said_train.train_step(state, schedule, kw, gen)
             losses.append(metrics["loss"])
@@ -270,14 +390,119 @@ def _data_suite(ctx, work):
     out["eval_loss"] = loss
 
     # the CLI, every write of this rank counted
-    writes = []
-    for name in ("save_pth", "save_train_state", "MetricsWriter"):
-        fn = getattr(train_cli, name)
-        setattr(train_cli, name, lambda *a, fn=fn, name=name, **kw: (writes.append(name), fn(*a, **kw))[1])
-    train_cli.build_said_model = lambda prediction_type, feature_dim, dtype, remat: SAID(
-        audio_config=Wav2Vec2Config(**DP_AUDIO), prediction_type=prediction_type, remat=remat)
-    train_cli.main(_cli_argv(work))
-    out["cli_writes"] = writes
+    out["cli_writes"] = _run_train_cli(work)
+    return out
+
+
+SMALL_ROUTES = dict(DENSE_MAX=16, BWD_DENSE_MAX=16, BWD_BLOCK_K=8)  # 24 gathered keys: flash, 3 key blocks
+
+
+def _seqtrain_suite(ctx, work):
+    from said_tpu_torch.models.layers import Frames
+    from said_tpu_torch.ops import attention
+    from said_tpu_torch.ops.attention import flash_attention_flat_sp
+    from said_tpu_torch.ops.norms import group_norm_sharded
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from said_tpu_torch.parallel.seq import gather, halo, shard_frames
+
+    mesh = make_mesh(MeshConfig(data=1, seq=ctx.world), ctx)
+    seq = mesh.seq
+    out = {}
+
+    def grads_of(fn, *xs, seed):
+        """fn on this rank's frames of each x; the gradients of Σ w·fn
+        (w drawn for the whole output, this rank's frames kept), gathered."""
+        local = [shard_frames(torch.from_numpy(x), seq).requires_grad_() for x in xs]
+        y = fn(*local)
+        w = shard_frames(torch.from_numpy(rand(gather(y.detach(), seq).shape, seed)), seq)
+        return gather(y.detach(), seq), [gather(g, seq) for g in torch.autograd.grad((y * w).sum(), local)]
+
+    q, k, v = attention_inputs()
+    out["flat_sp_grad"] = grads_of(lambda a, b, c: flash_attention_flat_sp(a, b, c, ATTN["heads"], seq), q, k, v,
+                                   seed=60)
+    x, w, b = group_norm_inputs()
+    for real in (500, 250):  # the last real frame in the second block of frames, then the first
+        for act in ("none", "silu"):
+            wt, bt = torch.from_numpy(w).requires_grad_(), torch.from_numpy(b).requires_grad_()
+
+            def gn(a):
+                lens = Frames(real, a.shape[0], a.shape[1], "cpu", a.dtype, seq.index * a.shape[1]).lens(a.shape[0])
+                return group_norm_sharded(a, 32, wt, bt, 1e-6, act, seq, lens)
+
+            y, (dx,) = grads_of(gn, x, seed=61)
+            y = gn(shard_frames(torch.from_numpy(x), seq))
+            wgrad = shard_frames(torch.from_numpy(rand(x.shape, 61)), seq)
+            dw, db = torch.autograd.grad((y * wgrad).sum(), [wt, bt])
+            out[f"group_norm_{real}_{act}"] = (gather(y.detach(), seq), dx, dw, db)
+    hx = rand((2, 4, 3), 62)  # 2 frames a rank, halos of 3: frames of both ranks and the clip's zeros
+    out["halo"] = grads_of(lambda a: halo(a, 3, 3, seq), hx, seed=63)
+    out["gather"] = grads_of(lambda a: gather(a, seq) * (seq.index + 1.0), hx, seed=64)
+
+    batch = train_batch(70)
+    out["sp"] = train_steps(work, mesh, [batch])
+    saved = {k: getattr(attention, k) for k in SMALL_ROUTES}
+    for key, value in SMALL_ROUTES.items():
+        setattr(attention, key, value)
+    out["sp_small_routes"] = train_steps(work, mesh, [batch])
+    if ctx.rank == 0:
+        out["one_small_routes"] = train_steps(work, None, [batch])
+    for key, value in saved.items():
+        setattr(attention, key, value)
+    if ctx.rank == 0:
+        out["one"] = train_steps(work, None, [batch])
+    out["deterministic"] = deterministic_loss_and_grads(work, mesh, train_batch(71, injected=True))
+    out["cli_writes"] = _run_train_cli(work)
+    return out
+
+
+def _tensor_suite(ctx, work):
+    from said_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from said_tpu_torch.train import said_train
+
+    mesh = make_mesh(MeshConfig(data=1, model=ctx.world), ctx)
+    model = load_model(work, mesh)
+    out = {"shards": {k: v.clone() for k, v in model.state_dict().items() if k in model.tensor_parallel.plan},
+           "plan": {k: (p.dim, p.blocks) for k, p in model.tensor_parallel.plan.items()}}
+    batch = train_batch(72)
+    out["tp"] = train_steps(work, mesh, [batch])
+    if ctx.rank == 0:
+        out["one"] = train_steps(work, None, [batch])
+    out["deterministic"] = deterministic_loss_and_grads(work, mesh, train_batch(73, injected=True))
+    # the validation step: deterministic, the fused GEGLU at the shard's width
+    schedule = DiffusionSchedule.create(1000)
+    evals = {}
+    for mode, m in (("tp", mesh), ("one", None)):
+        metrics = said_train.eval_step(load_model(work, m), schedule, loss_inputs(train_batch(74)),
+                                       said_train.TrainConfig(), torch.Generator().manual_seed(75))
+        evals[mode] = metrics
+    out["eval"] = evals
+    # a checkpoint's round trip: whole tensors out, this rank's shards back
+    state = said_train.TrainState(load_model(work, mesh), said_train.TrainConfig(learning_rate=1e-3))
+    said_train.train_step(state, schedule, loss_inputs(batch), torch.Generator().manual_seed(78))
+    whole = state.state_dict()
+    again = said_train.TrainState(load_model(work, mesh), said_train.TrainConfig(learning_rate=1e-3))
+    again.load_state_dict(whole)
+    mine, theirs = state.optimizer.state_dict(), again.optimizer.state_dict()
+    out["resume"] = {"whole_shapes": {k: tuple(v.shape) for k, v in whole["model"].items()},
+                     "identical": again.step == state.step and mine["count"] == theirs["count"]
+                     and all(torch.equal(a, b) for k in ("mu", "nu") for a, b in zip(mine[k], theirs[k]))
+                     and all(torch.equal(p, again.params[n]) for n, p in state.params.items())
+                     and all(torch.equal(e, again.ema[n]) for n, e in state.ema.items())}
+    out["cli_writes"] = _run_train_cli(work)
+    return out
+
+
+def _combined_suite(ctx, work):
+    from said_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, model=2, seq=2), ctx)
+    batch = train_batch(76)
+    out = {"coords": (mesh.model.index, mesh.seq.index), "mesh": train_steps(work, mesh, [batch]),
+           "remat": train_steps(work, mesh, [batch], remat=True)}
+    if ctx.rank == 0:
+        out["one"] = train_steps(work, None, [batch])
+    out["deterministic"] = deterministic_loss_and_grads(work, mesh, train_batch(77, injected=True))
     return out
 
 
@@ -289,7 +514,8 @@ def main():
     torch.set_num_threads(1)
     ctx = maybe_init_distributed("cpu")
     try:
-        out = {"seq": _seq_suite, "data": _data_suite}[suite](ctx, work)
+        out = {"seq": _seq_suite, "data": _data_suite, "seqtrain": _seqtrain_suite, "tensor": _tensor_suite,
+               "combined": _combined_suite}[suite](ctx, work)
         torch.save(out, os.path.join(work, f"{suite}_rank{ctx.rank}.pt"))
     finally:
         shutdown(ctx)
