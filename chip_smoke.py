@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero; there is no try/except around them):
 
 1. Environment: torch/CUDA versions, the card's name and power limit;
-   build the CUDA C++ kernels from ``said_tpu_torch/csrc`` and compile the
+   build the CUDA C++ kernels from ``said_tpu_torch/csrc`` (and, started
+   together with them, the probe kernels of ``csrc/probes`` into their own
+   library, for phase 28) and compile the
    Triton kernels (the GroupNorm split), and build the native QP solver
    (``said_tpu_torch/optimize/csrc``, ``g++``), with their build times.
 2. Every kernel of the main paths against its plain PyTorch twin on the
@@ -25,8 +27,9 @@ Phases (any failure exits non-zero; there is no try/except around them):
    largest binds).
    LayerNorm runs at the UNet's 10-s, 60-s and 6-min shapes, the
    encoder's at 10 s, 50 s and 5 min (feature projection and layers), a
-   "layer" feature extractor's conv_0 of a 10-s clip (with ``F.layer_norm``
-   in bf16 too), and ragged; each case prints its plan (lanes a row × 16-byte vectors a
+   "layer" feature extractor's conv_0 of a 10-s clip, and ragged, each
+   beside ``F.layer_norm`` in both dtypes (in bf16 with bf16 weights, where
+   the kernel reads f32 ones); each case prints its plan (lanes a row × 16-byte vectors a
    lane, rows a block, blocks). The strided conv runs at the six 10-s
    shapes of conv_1 … conv_6, the 60-s conv_1 and two ragged ones, each
    with its route, beside the unfused ``F.gelu(F.conv1d(...))`` (cuDNN,
@@ -258,6 +261,28 @@ Phases (any failure exits non-zero; there is no try/except around them):
     K1 with lengths at the SP-train shard (2,2100,6×32) against
     (2,4200,6×32) keys, the masked stats kernel at a rank's (2,2100,192)
     with a length inside the shard, and K8 at (8,300,192) with I = 384.
+28. The probes (``said_tpu_torch.probes``, off the serving and training
+    paths): every stage and variant of the two probe kernels (the flash
+    probe's stages and shift variants, the int8 probe's stages) against
+    its plain version at (12, 1024, 32) and (2, 1024, 6×32) (and a ragged
+    (2, 1000, 6×32) for the shift variants, which mask), f32 and bf16, int8
+    where it applies, within ``probe_limit``: phase 2's flash bounds for
+    the whole attentions (full, every shift variant; bf16s, which rounds
+    its scores to bf16 by definition, at the bf16 bound in both dtypes),
+    1e-5 (f32) / 1e-2 (bf16) for the partial stages and dot_bf16, exact
+    for copy and dot_int8, 2e-2 for the int8 probe's full stages; each
+    kernel's headline case timed beside its plain version, its library
+    call and its bound. Then the five probe CLIs (``python -m
+    said_tpu_torch.probes.<name>``, called as ``main(argv)``) once each at
+    the tools' default shapes with a few graph-replayed iterations: every
+    kernel-against-plain error a CLI reports at its shape (long and ragged
+    ones among them) within the same ``probe_limit``; the probe counters,
+    zeroed just before each, must read exactly what each CLI launches;
+    P1's and P2's full and P3's and P5's prod beside K1's time at the same
+    shape (flagged where they lie more than 15% apart) and beside SDPA's
+    on the CLI's own inputs; the int8 probe's stages beside
+    ``torch.matmul`` (bf16) and ``torch._int_mm``. A ``{"probes": ...}``
+    JSON line with the errors and the times.
 
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
@@ -271,11 +296,13 @@ the repository beside it, the script exits non-zero and prints no result.
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -301,6 +328,25 @@ from said_tpu_torch.data.blendvoca import PERSON_IDS_TEST  # noqa: E402
 from said_tpu_torch.models.said import SAIDPipeline, process_audio, streaming_starts  # noqa: E402
 from said_tpu_torch.ops import attention, conv, ffn, norms  # noqa: E402
 from said_tpu_torch.optimize import native as qp_native  # noqa: E402
+from said_tpu_torch.probes import (  # noqa: E402
+    _cli,
+    attn_probe,
+    attn_probe2,
+    flash_probe,
+    flash_shift,
+    flash_stages,
+    fullk_bound_probe,
+    int8_qk,
+    int8_qk_probe,
+    shift,
+    vpu_probe,
+)
+from said_tpu_torch.probes.timing import (  # noqa: E402
+    EXP2_PER_S,
+    FMA_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    PRODUCT_FLOP_PER_S,
+)
 
 DEV = torch.device("cuda")
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -343,15 +389,6 @@ LAYER_FEATURE_NORM_SHAPE = (1, 31999, 512)
 # gradient (the train-mode BatchNorm backward cancels: the JAX package's
 # own f32 gradients depart from float64 by up to 5e-5 on the CPU)
 VAE_BOUND = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5}
-# the card's peaks (NVIDIA's H100 SXM data sheet; the special-function
-# rate for exp2 as the FlashAttention-3 paper gives it). Products (GEMM,
-# attention, convolution) can run on the tensor cores: bf16 at its dense
-# peak, f32 as 3xTF32, three TF32 products per f32 product, so at a third
-# of TF32's 495 TFLOP/s. Elementwise work runs on the f32 FMA pipes.
-HBM_BYTES_PER_S = 3.35e12
-PRODUCT_FLOP_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-FMA_FLOP_PER_S = 67e12
-EXP2_PER_S = 3.9e12
 
 KERNELS = {  # name -> (wrapper, route, source, the TPU kernel it replaces: file:line, function)
     "group_norm": (norms.group_norm_kernel, "cuda", "said_tpu_torch/csrc/group_norm.cu",
@@ -378,6 +415,30 @@ ALSO_REPLACES = {
     "group_norm_masked": "said_tpu/ops/pallas_norms.py:338 (group_norm_masked_pallas_blocked)",
     "flash_attention": "said_tpu/ops/pallas_attention.py:322 (_flash_tpu_packed_blocked)",
 }
+# the probe kernels (phase 28), off the serving and training paths, kept
+# apart from KERNELS: phases 3-27 count and check KERNELS' launches only
+PROBE_KERNELS = {
+    "flash_probe": (flash_probe.flash_probe_kernel, "cuda", "said_tpu_torch/csrc/probes/flash_probe.cu",
+                    "tools/attn_probe.py:29", "build (pallas_call :105)",
+                    "tools/attn_probe2.py:33 (packed_kernel_factory, pallas_call :91); "
+                    "tools/fullk_bound_probe.py:52 (fullk_bound, pallas_call :115); "
+                    "tools/vpu_probe.py:95 (blocked_variant, pallas_call :250)"),
+    "int8_qk": (int8_qk.int8_qk_kernel, "cuda", "said_tpu_torch/csrc/probes/int8_qk.cu",
+                "tools/int8_qk_probe.py:54", "build (pallas_call :139)", None),
+}
+# the phase-28 CLIs: the probe counters each must read with --iters ITERS
+# (every timed thunk's wrapper runs 1 + ITERS times: a warm-up and a graph
+# capture; the CLIs' own checks add the rest), and where in its result the
+# time set beside K1's lies
+PROBE_ITERS = 4
+PROBE_CLIS = {
+    "attn_probe": (attn_probe, {"flash_probe": 6 + 6 * (1 + PROBE_ITERS)}, ("stages", "full")),
+    "attn_probe2": (attn_probe2, {"flash_probe": 3 + 4 * (1 + PROBE_ITERS)}, ("modes", "full")),
+    "fullk_bound_probe": (fullk_bound_probe, {"flash_probe": 2 + 3 * (1 + PROBE_ITERS)}, ("prod",)),
+    "int8_qk_probe": (int8_qk_probe, {"int8_qk": 5 + 5 * (1 + PROBE_ITERS)}, None),
+    "vpu_probe": (vpu_probe, {"flash_probe": 5 + 4 + 6 * (1 + PROBE_ITERS)}, ("variants", "prod")),
+}
+PROBE_APART = 0.15
 # what each kernel's unfused yardstick computes (phase 2's "unfused" thunks;
 # f32 with TF32 off, so at the kernel's precision)
 UNFUSED = {"geglu_ffn": "F.linear, a*gelu(g), F.linear",
@@ -473,10 +534,10 @@ def kernel_cases():
             x, w, b = randn(shape, 1, dt, 2.0, 0.5), randn((c,), 2), randn((c,), 3)
             fns = {"kernel": lambda x=x, w=w, b=b: norms.layer_norm_kernel(x, w, b, 1e-5),
                    "plain": lambda x=x, w=w, b=b: norms.layer_norm_plain(x, w, b, 1e-5)}
-            if dt == torch.float32 or shape == LAYER_FEATURE_NORM_SHAPE:
-                # (F.layer_norm on the card takes weights in x's dtype)
-                fns["library"] = lambda x=x, w=w.to(dt), b=b.to(dt), c=c: torch.nn.functional.layer_norm(
-                    x, (c,), w, b, 1e-5)
+            # F.layer_norm on the card takes its weights in x's dtype: in
+            # bf16 it reads bf16 weights where the kernel reads f32 ones
+            fns["library"] = lambda x=x, w=w.to(dt), b=b.to(dt), c=c: torch.nn.functional.layer_norm(
+                x, (c,), w, b, 1e-5)
             if shape[1] >= 600:  # the main path's shapes: other plans, forced
                 for lanes, per_block in ln_plans(n // c, c, dt):
                     fns[f"plan {lanes}x{per_block}"] = (lambda x=x, w=w, b=b, p=(lanes, per_block):
@@ -2631,6 +2692,189 @@ def phase_tensor_parallel_training(record, gpu_line):
         "one_process_ms": one["ms"], "all_gathers_per_rank": tp["collectives"], "device": gpu_line, "ranks": 2,
         "backend": "gloo, one card shared", "run_s": wall}}))
 
+# ------------------------------------------------------------ the probes
+
+PROBE_PARTIAL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def probe_limit(name, dt):
+    """The bound on a probe stage's or variant's max |kernel − plain|,
+    relative to max |plain| (0: bit-exact), in phase 28's checks and the
+    CLIs' readings alike: copy and dot_int8 exact; the partial stages and
+    dot_bf16 1e-5 (f32) / 1e-2 (bf16); the int8 probe's full stages 2e-2
+    (rint(p·127) flips where ex2.approx and torch.exp2 differ in the last
+    place); the whole attentions (full and every shift variant) phase 2's
+    flash bound, bf16s at the bf16 bound in either dtype."""
+    if name in ("copy", "dot_int8"):
+        return 0.0
+    if name == "dot_bf16" or name in flash_stages.STAGES[1:-1]:
+        return PROBE_PARTIAL[torch.bfloat16 if name == "dot_bf16" else dt]
+    if name in int8_qk.STAGES:
+        return 2e-2
+    return BOUND[torch.bfloat16 if name == "bf16s" else dt]
+
+
+def probe_check_cases():
+    """Phase 28's checks: (kernel name, label, kernel thunk, plain thunk,
+    bound relative to max |plain|)."""
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for layout, shape in (("head", (12, 1024, 32)), ("packed", (2, 1024, 192))):
+            q, k, v = (randn(shape, 90 + i, dt) for i in range(3))
+            for stage in flash_stages.STAGES:
+                cases.append(("flash_probe", f"{stage} {layout} {tag} {shape}",
+                              lambda q=q, k=k, v=v, st=stage, lo=layout: flash_stages.flash_stages_kernel(q, k, v, st, lo),
+                              lambda q=q, k=k, v=v, st=stage, lo=layout: flash_stages.flash_stages_plain(q, k, v, st, lo),
+                              probe_limit(stage, dt)))
+        for t in (1024, 1000):
+            q, k, v = (randn((2, t, 192), 93 + i, dt) for i in range(3))
+            shifts = {"bound": shift.qk_shift_bound(q, k, 6)}
+            for variant in flash_shift.VARIANTS:
+                a = shifts.get(variant)
+                cases.append(("flash_probe", f"{variant} {tag} (2, {t}, 6x32)",
+                              lambda q=q, k=k, v=v, var=variant, a=a: flash_shift.flash_shift_kernel(
+                                  q, k, v, var, a, shift.VPU_CLAMP),
+                              lambda q=q, k=k, v=v, var=variant, a=a: flash_shift.flash_shift_plain(
+                                  q, k, v, var, a, shift.VPU_CLAMP),
+                              probe_limit(variant, dt)))
+    x = shift.int8_inputs(*(randn((6, 1024, 32), 96 + i) for i in range(3)))
+    for stage in int8_qk.STAGES:
+        args = (*int8_qk_probe.stage_args(x, stage), stage, x.dequant_log2, x.pv_scale)
+        cases.append(("int8_qk", f"{stage} (6, 1024, 32)", lambda a=args: int8_qk.int8_qk_kernel(*a),
+                      lambda a=args: int8_qk.int8_qk_plain(*a), probe_limit(stage, torch.float32)))
+    return cases
+
+
+def probe_cli_errors(cli_name, res):
+    """{label: (error, limit)}: every kernel-against-plain error a probe CLI
+    computed on the card at its shape (relative to max |plain|), beside
+    ``probe_limit``."""
+    dt = _cli.DTYPES[res.get("dtype", "bfloat16")]
+    if cli_name == "attn_probe":
+        errs = {stage: entry["max_rel_err"] for stage, entry in res["stages"].items()}
+    elif cli_name == "attn_probe2":
+        errs = {mode: entry["max_rel_err"] for mode, entry in res["modes"].items()}
+    elif cli_name == "fullk_bound_probe":
+        errs = {name: res[f"{name}_rel_err_vs_plain"] for name in ("prod", "bound")}
+    elif cli_name == "vpu_probe":
+        errs = {name: res["variants"][name]["rel_err_vs_plain"] for name in flash_shift.VARIANTS}
+    else:
+        errs = {stage: entry["max_rel_err_vs_plain"] for stage, entry in res["stages"].items()}
+    return {name: (err, probe_limit(name, dt)) for name, err in errs.items()}
+
+
+def probe_headlines():
+    """Each probe kernel's headline case for the kernels' record: thunks
+    (kernel, plain, library) and the work its bound counts."""
+    bf = torch.bfloat16
+    q, k, v = (randn((12, 1024, 32), 90 + i, bf) for i in range(3))
+    pairs = 12 * 1024 * 1024
+    heads = {"kernel": lambda: flash_stages.flash_stages_kernel(q, k, v, "full", "head"),
+             "plain": lambda: flash_stages.flash_stages_plain(q, k, v, "full", "head"),
+             "library": sdpa_thunk(q, k, v, 1, None)}
+    flash_work = {"bytes": 4 * 12 * 1024 * 32 * 2, "product_flop": 4 * pairs * 32, "exp2": pairs}
+    x = shift.int8_inputs(*(randn((6, 1024, 32), 96 + i) for i in range(3)))
+    k0 = x.k_i8[0].t()
+    dot = {"kernel": lambda: int8_qk.int8_qk_kernel(x.q_i8, x.k_i8, None, "dot_int8"),
+           "plain": lambda: int8_qk.int8_qk_plain(x.q_i8, x.k_i8, None, "dot_int8"),
+           "library": lambda: torch._int_mm(x.q_i8.view(-1, 32), k0)}
+    pairs_i8 = 6 * 1024 * 1024
+    return {"flash_probe": ("stage full bf16 (12, 1024, 32) per head; library SDPA", bf, heads, flash_work),
+            "int8_qk": ("dot_int8 (6, 1024, 32); library torch._int_mm of all query rows against one head's "
+                        "keys (the same operations)", torch.int8, dot,
+                        {"bytes": 2 * 6 * 1024 * 32 + 6 * 1024 * 32 * 2, "product_flop": 2 * pairs_i8 * 32})}
+
+
+def probe_yardsticks(cli_name, inputs):
+    """The library calls timed beside a probe CLI (the port never calls
+    them), on the inputs the CLI drew (its ``inputs`` record: the shape,
+    and the heads packed in a row; ``_cli.inputs`` from the same seed):
+    SDPA on its attention inputs; for the int8 probe ``torch.matmul`` in
+    bf16 (batched) and ``torch._int_mm`` (every query row against one
+    head's keys: the same operations; torch has no batched int8
+    product)."""
+    shape = tuple(inputs["shape"])
+    if cli_name != "int8_qk_probe":
+        q, k, v = _cli.inputs(np.random.default_rng(0), shape, 3, torch.bfloat16, DEV)
+        return {"SDPA": sdpa_thunk(q, k, v, inputs["heads"], None)}
+    x = shift.int8_inputs(*_cli.inputs(np.random.default_rng(0), shape, 3, torch.float32, DEV))
+    k0 = x.k_i8[0].t()  # column-major, as _int_mm takes it
+    return {"torch.matmul bf16": lambda: torch.matmul(x.q_bf, x.k_bf.transpose(1, 2)),
+            "torch._int_mm": lambda: torch._int_mm(x.q_i8.view(-1, shape[-1]), k0)}
+
+
+def phase_probes(record, gpu_line, build_s):
+    print(f"\n== phase 28: the probe kernels (said_tpu_torch.probes) against their plain versions, then the five "
+          f"probe CLIs at the tools' default shapes (probe library built in phase 1 in {build_s:.1f} s) ==")
+    t0 = time.perf_counter()
+    for name, label, kernel, plain, limit in probe_check_cases():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name} {label}: dtype/shape differ from the plain")
+        err = (got.float() - ref.float()).abs().max().item()
+        bound_abs = limit * ref.float().abs().max().item()
+        ok = err <= bound_abs and np.isfinite(err) and bool(torch.isfinite(got.float()).all())
+        print(f"{name:13s} {label:34s} max_abs_err {err:.3e} limit {bound_abs:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label}: max abs err {err} > limit {bound_abs}")
+    for name, (label, dt, fns, work) in probe_headlines().items():
+        got, ref = fns["kernel"](), fns["plain"]()
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = timed(fns)
+        dev = {key: val["device"] for key, val in ms.items()}
+        bound_ms, bound_by = bound(work, dt)
+        print(f"{name:13s} headline {label}: on the card alone kernel {dev['kernel']:.4f} ms (with enqueue "
+              f"{ms['kernel']['enqueue']:.4f}) plain {dev['plain']:.4f} ms library {dev['library']:.4f} ms "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        record[name].update(max_abs_err=err, ms=ms["kernel"]["enqueue"], plain_ms=ms["plain"]["enqueue"],
+                            library_ms=ms["library"]["enqueue"], device_ms=dev["kernel"],
+                            plain_device_ms=dev["plain"], library_device_ms=dev["library"], bound_ms=bound_ms,
+                            bound_by=bound_by, shape=label)
+    checks_s = time.perf_counter() - t0
+
+    results, apart, vs_plain = {}, {}, {}
+    for cli_name, (module, expected, path) in PROBE_CLIS.items():
+        print(f"\n-- python -m said_tpu_torch.probes.{cli_name} --iters {PROBE_ITERS} --rounds 3")
+        for fn, *_ in PROBE_KERNELS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = module.main(["--iters", str(PROBE_ITERS), "--rounds", "3"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {name: fn.launches for name, (fn, *_) in PROBE_KERNELS.items()}
+        want = {name: expected.get(name, 0) for name in PROBE_KERNELS}
+        print(f"-- {cli_name}: {wall:.1f} s; probe launches {launches}")
+        check(launches == want, f"{cli_name}: probe launches {launches} != {want}")
+        for name, n in launches.items():
+            record[name].setdefault("launches_by_request", {})[cli_name] = n
+            record[name]["launches"] = record[name].get("launches", 0) + n
+        errors = probe_cli_errors(cli_name, res)
+        vs_plain[cli_name] = errors
+        for label, (err, limit) in errors.items():
+            ok = np.isfinite(err) and err <= limit
+            print(f"-- {cli_name} {label:16s} at {tuple(res['inputs']['shape'])}: max rel err vs plain {err:.3e} "
+                  f"limit {limit:.0e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{cli_name} {label}: max rel err vs plain {err} > limit {limit}")
+        library = {name: val["device"] for name, val in timed(probe_yardsticks(cli_name, res["inputs"])).items()}
+        res.update(wall_s=wall, library_ms=library)
+        results[cli_name] = res
+        lib = ", ".join(f"{name} {ms:.4f} ms" for name, ms in library.items())
+        if path is None:
+            print(f"-- {cli_name}: beside {lib} (on the card alone)")
+            continue
+        entry = functools.reduce(dict.__getitem__, path, res)
+        ratio = entry["ms"] / res["K1"]["ms"]
+        apart[cli_name] = ratio
+        flag = "" if abs(ratio - 1.0) <= PROBE_APART else f"  MORE THAN {PROBE_APART:.0%} APART"
+        print(f"-- {cli_name}: {path[-1]} {entry['ms']:.4f} ms beside K1 {res['K1']['ms']:.4f} ms at the same shape "
+              f"({ratio:.3f}x{flag}) and {lib}")
+    wall = time.perf_counter() - t0
+    print(f"phase 28: checks and headlines {checks_s:.1f} s, all {wall:.1f} s (+ {build_s:.1f} s of build in phase 1) "
+          f"on {gpu_line}")
+    print(json.dumps({"probes": {"device": gpu_line, "build_s": build_s, "phase_s": wall, "vs_k1": apart,
+                                 "vs_plain": vs_plain, "results": results}}, default=float))
+
 
 def main():
     os.makedirs(WORK, exist_ok=True)
@@ -2642,8 +2886,20 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(gpu_line)
     t0 = time.perf_counter()
+    probe_build = {}
+
+    def build_probes():  # started together with the main library: every nvcc at once
+        t1 = time.perf_counter()
+        _build.probe_library()
+        probe_build["s"] = time.perf_counter() - t1
+
+    thread = threading.Thread(target=build_probes)
+    thread.start()
     _build.library()
     print(f"nvcc build of said_tpu_torch/csrc: {time.perf_counter() - t0:.1f} s")
+    thread.join()
+    check("s" in probe_build, "the probe library did not build (the error is above)")
+    print(f"nvcc build of said_tpu_torch/csrc/probes (in parallel with the above): {probe_build['s']:.1f} s")
     t0 = time.perf_counter()
     qp_native.load()  # raises with g++'s output if the build fails
     print(f"g++ build of said_tpu_torch/optimize/csrc/qp_solver.cpp: {time.perf_counter() - t0:.1f} s "
@@ -2666,6 +2922,9 @@ def main():
         record[name]["also_replaces"] = also
     for name, (route, src) in SPLIT_ROUTE.items():
         record[name].update(split_route=route, split_source=src)
+    for name, (_, route, src, rep, fn, also) in PROBE_KERNELS.items():
+        record[name] = {"name": name, "route": route, "source": src, "replaces": rep, "replaces_function": fn,
+                        **({"also_replaces": also} if also else {})}
     phase_kernels(record)
     check_sharded_group_norm()
     phase_autograd()
@@ -2697,6 +2956,7 @@ def main():
     phase_sequence_parallel(record, gpu_line)
     phase_sequence_parallel_training(record, gpu_line)
     phase_tensor_parallel_training(record, gpu_line)
+    phase_probes(record, gpu_line, probe_build["s"])
 
     print("\nall phases passed")
     print(gpu_line)

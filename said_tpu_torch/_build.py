@@ -5,7 +5,12 @@ all started together, and the objects are linked into one shared
 library with a plain C interface, loaded through ``ctypes``. The library
 lands in ``build/said_tpu_torch/<hash>/`` beside the package, keyed by a
 hash of the sources and flags, so an unchanged checkout builds once and
-an edited source rebuilds. Nothing here runs at import time.
+an edited source rebuilds. The probe kernels (``csrc/probes/*.cu``, off
+the serving and training paths) build the same way into a second
+library, ``libsaid_probes.so``, with a hash of their own sources and
+headers (``csrc/probes/`` and the shared ``csrc/*.cuh``): neither
+library's hash sees the other's sources. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_PROBES = _CSRC / "probes"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "said_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +54,13 @@ _SIGNATURES = {
     # groups a block, cluster size, stream
     "said_group_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
 }
+# the probe library's entry points (csrc/probes/)
+_PROBE_SIGNATURES = {
+    # q, k, v, shift (NULL or (B, T, H) f32), out, B, T, S, H, stage, variant, ones, floor, dtype, stream
+    "said_probe_flash": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v (NULL for the dot stages), out, BH, T, S, stage, dequant_log2, pv_scale, stream
+    "said_probe_int8_qk": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+}
 
 
 def _nvcc() -> str:
@@ -58,13 +71,23 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def _hash(files) -> str:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu*")):
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libsaid_kernels.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    return BUILD_ROOT / _hash(sorted(_CSRC.glob("*.cu*"))) / "libsaid_kernels.so"
+
+
+def probe_library_path() -> Path:
+    """Where the probe library for the current sources lives (built or not)."""
+    files = sorted(_PROBES.glob("*.cu*")) + sorted(_CSRC.glob("*.cuh"))
+    return BUILD_ROOT / "probes" / _hash(files) / "libsaid_probes.so"
 
 
 def _run_all(cmds) -> None:
@@ -80,14 +103,12 @@ def _run_all(cmds) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    out = library_path()
+def _load(out: Path, sources, signatures) -> ctypes.CDLL:
+    """Build ``out`` from ``sources`` (one nvcc each, in parallel) unless it
+    exists, load it and set its entry points' signatures."""
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         nvcc, tag = _nvcc(), os.getpid()
-        sources = sorted(_CSRC.glob("*.cu"))
         objects = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
         tmp = out.with_name(f"{out.name}.{tag}.tmp")
         try:
@@ -99,11 +120,23 @@ def library() -> ctypes.CDLL:
             for obj in objects:
                 obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    return _load(library_path(), sorted(_CSRC.glob("*.cu")), _SIGNATURES)
+
+
+@functools.cache
+def probe_library() -> ctypes.CDLL:
+    """Build (if needed) and load the probe kernels' library."""
+    return _load(probe_library_path(), sorted(_PROBES.glob("*.cu")), _PROBE_SIGNATURES)
 
 
 def check(err: int, name: str) -> None:

@@ -32,6 +32,40 @@ CONV_SHAPES = ((3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999)
 ITERS = 20
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def capture(fn, calls: int):
+    """One warm-up call of ``fn``, then ``calls`` calls captured in one CUDA
+    graph, replayed once to warm it; the graph."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return graph
+
+
+def replay_ms(graph, calls: int) -> float:
+    """Milliseconds a call on the card alone: one replay of a graph of
+    ``calls`` calls between CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def _worker(tree: str) -> None:
     sys.path[0] = os.path.abspath(tree)  # this checkout's said_tpu_torch, not the one beside this file
     import numpy as np
@@ -58,17 +92,7 @@ def _worker(tree: str) -> None:
             end.record()
             end.synchronize()
             enqueue.append(start.elapsed_time(end))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(ITERS):
-                fn()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return {"ms": statistics.median(enqueue), "device_ms": start.elapsed_time(end) / ITERS}
+        return {"ms": statistics.median(enqueue), "device_ms": replay_ms(capture(fn, ITERS), ITERS)}
 
     pack = getattr(conv, "pack_weight", lambda w: w)  # a tree whose kernel reads the weight as given
     out = {}
@@ -93,8 +117,7 @@ def main(argv=None) -> dict:
     if args.worker is not None:
         _worker(args.worker)
         return {}
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    gpu = card_line()
     print(gpu)
     runs = {}
     for tree in args.trees:

@@ -341,11 +341,12 @@ def _imports(*modules):
 
 def test_port_imports_nothing_of_the_jax_package():
     """Nor jax, flax, pandas, sklearn or safetensors (the machine with the
-    card has none), anywhere in the port or ``chip_smoke.py``; nor PIL in
-    the render and asset paths."""
+    card has none), nor the JAX package's ``tools/`` (the probes have their
+    own port), anywhere in the port or ``chip_smoke.py``; nor PIL in the
+    render and asset paths."""
     port = REPO / "said_tpu_torch"
     sources = [*port.rglob("*.py"), REPO / "chip_smoke.py"]
-    pattern = _imports("said_tpu", "jax", "flax", "pandas", "sklearn", "safetensors")
+    pattern = _imports("said_tpu", "jax", "flax", "pandas", "sklearn", "safetensors", "tools")
     for path in sources:
         assert not pattern.search(path.read_text()), path
     no_pil = [*(port / "render").rglob("*.py"), port / "utils" / "blendshape.py", port / "utils" / "png.py",
@@ -356,6 +357,8 @@ def test_port_imports_nothing_of_the_jax_package():
     assert _imports("jax").search("x = 1\n    import jax.numpy as jnp\n")
     assert _imports("PIL").search("from PIL import Image")
     assert not _imports("jax", "said_tpu").search("# jax and said_tpu are not imported\nimport said_tpu_torch\n")
+    assert _imports("tools").search("from tools.attn_probe import build")
+    assert not _imports("tools").search("import torch\nfrom said_tpu_torch.probes import shift\n")
 
 
 @pytest.mark.parametrize("cli,names", [

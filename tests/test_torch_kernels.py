@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from said_tpu_torch.ops import attention, conv, ffn, norms
+from said_tpu_torch.probes import flash_shift, flash_stages, int8_qk, shift
 
 pytestmark = pytest.mark.gpu
 
@@ -664,3 +665,66 @@ def test_routers_record_no_gradient_without_grad(dev):
     with torch.no_grad():
         assert norms.layer_norm(x, w, b).grad_fn is None
         assert norms.group_norm(x, 32, w, b).grad_fn is None
+
+
+# ------------------------------------------------------------ the probes
+# (said_tpu_torch.probes: off the serving and training paths). Bounds:
+# K1's above for the full attentions (every flash_shift variant, the full
+# stage; bf16s, which rounds its scores and p to bf16 by definition, at the
+# bf16 bound in either dtype); 1e-5 (f32) and 1e-2 (bf16) for the partial stages; exact for
+# dot_int8; 2e-2 for the int8 full stages (rint(p·127) flips where ex2.approx
+# and torch.exp2 differ in the last place).
+
+
+def _probe_close(got, ref, rel):
+    err = (got.float() - ref.float()).abs().max().item()
+    bound = rel * ref.float().abs().max().item()
+    assert got.shape == ref.shape and err <= bound, f"max abs err {err:.3g} > bound {bound:.3g}"
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("layout", flash_stages.LAYOUTS)
+@pytest.mark.parametrize("stage", flash_stages.STAGES)
+def test_probe_flash_stages_kernel(dev, stage, layout, dtype):
+    shape = (12, 1024, 32) if layout == "head" else (2, 1024, 192)
+    q, k, v = (_randn(shape, 80 + i, dev, dtype) for i in range(3))
+    got = flash_stages.flash_stages_kernel(q, k, v, stage, layout)
+    want = flash_stages.flash_stages_plain(q, k, v, stage, layout)
+    partial = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    _probe_close(got, want, 0.0 if stage == "copy" else _BOUND[dtype] if stage == "full" else partial)
+
+
+@pytest.mark.parametrize("t", [1024, 1000])
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("variant", flash_shift.VARIANTS)
+def test_probe_flash_shift_kernel(dev, variant, dtype, t):
+    q, k, v = (_randn((2, t, 192), 83 + i, dev, dtype) for i in range(3))
+    a = shift.qk_shift_bound(q, k, 6) if variant == "bound" else None
+    got = flash_shift.flash_shift_kernel(q, k, v, variant, a, shift.VPU_CLAMP)
+    bound = _BOUND[torch.bfloat16 if variant == "bf16s" else dtype]
+    _probe_close(got, flash_shift.flash_shift_plain(q, k, v, variant, a, shift.VPU_CLAMP), bound)
+
+
+@pytest.mark.parametrize("stage", int8_qk.STAGES)
+def test_probe_int8_qk_kernel(dev, stage):
+    x = shift.int8_inputs(*(_randn((6, 1024, 32), 86 + i, dev, torch.float32) for i in range(3)))
+    int8 = "int8" in stage
+    v = None if stage.startswith("dot_") else x.v_i8 if stage == "full_int8qkpv" else x.v_bf
+    q, k = (x.q_i8, x.k_i8) if int8 else (x.q_bf, x.k_bf)
+    got = int8_qk.int8_qk_kernel(q, k, v, stage, x.dequant_log2, x.pv_scale)
+    want = int8_qk.int8_qk_plain(q, k, v, stage, x.dequant_log2, x.pv_scale)
+    if stage == "dot_int8":
+        assert torch.equal(got, want)
+    else:
+        _probe_close(got, want, 1e-2 if stage == "dot_bf16" else 2e-2)
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    q = _randn((12, 1000, 32), 89, dev, torch.bfloat16)  # T not a multiple of 64
+    with pytest.raises(ValueError):
+        flash_stages.flash_stages_kernel(q, q, q, "full")
+    q = _randn((2, 1024, 192), 89, dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_shift.flash_shift_kernel(q, q, q, "bound")  # no shift
+    with pytest.raises(TypeError):
+        int8_qk.int8_qk_kernel(q[:, :, :32].contiguous(), q[:, :, :32].contiguous(), None, "dot_int8")
