@@ -280,9 +280,35 @@ Phases (any failure exits non-zero; there is no try/except around them):
     zeroed just before each, must read exactly what each CLI launches;
     P1's and P2's full and P3's and P5's prod beside K1's time at the same
     shape (flagged where they lie more than 15% apart) and beside SDPA's
-    on the CLI's own inputs; the int8 probe's stages beside
-    ``torch.matmul`` (bf16) and ``torch._int_mm``. A ``{"probes": ...}``
-    JSON line with the errors and the times.
+    on the CLI's own inputs, and the same stage of the probe kernel in f32
+    beside SDPA in f32 on the same draws (card alone, graph replay); the
+    int8 probe's stages beside ``torch.matmul`` (bf16) and
+    ``torch._int_mm``. A ``{"probes": ...}`` JSON line with the errors and
+    the times.
+29. A profiled request: the inference CLI with ``--profile_dir`` on a 40-s
+    clip (2400 frames: past the dense limit, so K1 runs), 10 DDIM steps,
+    CFG 2.0, f32, in a process of its own, as a user runs it, which writes
+    its launch counters to a file (on an H100, a ``torch.profiler``
+    session in a process that had profiled before lost kernel records at
+    its start: in this process, after the profiles of earlier phases, the
+    request's first nine kernels of ours; three more sessions here print
+    what they record). The trace
+    (``rank0.*.pt.trace.json``) is read back: its kernel events, sorted
+    into ``profile_step.FAMILIES``, count exactly what the counters read
+    for each of the port's kernel families (the GroupNorm family two a
+    call where the call took the Triton split: the encoder's conv_0, at
+    ~128k frames; a trace torn by the profiler is taken again, up to
+    ``TRACE_TRIES`` times); its size, device-busy ms by family and the
+    idle share of the window (the process's first request, one-time
+    set-up included) and of the span from the first device event to the
+    last are printed. The same request without the flag
+    writes the same CSV, byte for byte. Then ``--compilation_cache_dir``:
+    in a process of its own, the CLI on a 2-s clip (its conv_0 past the
+    split threshold, so Triton compiles) with 2 steps and that flag, and in
+    the same process the probe and QP libraries: all three libraries and the
+    Triton cache land under ``build/chip_smoke/cc``, nothing new under the
+    default root; a second identical subprocess builds and writes
+    nothing there; both walls printed.
 
 The last two lines are the kernels' JSON record (``ms``, ``plain_ms``
 and ``library_ms`` with the host's enqueue counted, ``device_ms``,
@@ -315,7 +341,7 @@ if not torch.cuda.is_available():
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from said_tpu_torch import _build  # noqa: E402
+from said_tpu_torch import _build, profile_step  # noqa: E402
 from said_tpu_torch.cli import inference as cli  # noqa: E402
 from said_tpu_torch.cli import test_inference as eval_cli  # noqa: E402
 from said_tpu_torch.cli._common import (  # noqa: E402
@@ -439,6 +465,27 @@ PROBE_CLIS = {
     "vpu_probe": (vpu_probe, {"flash_probe": 5 + 4 + 6 * (1 + PROBE_ITERS)}, ("variants", "prod")),
 }
 PROBE_APART = 0.15
+# the f32 call of each attention probe CLI's kernel timed beside SDPA in f32
+# on the CLI's draws: P1's and P2's full stage, P3's and P5's prod variant
+PROBE_F32 = {
+    "attn_probe": ("full", lambda q, k, v: flash_stages.flash_stages_kernel(q, k, v, "full", "head")),
+    "attn_probe2": ("full", lambda q, k, v: flash_stages.flash_stages_kernel(q, k, v, "full", "packed")),
+    "fullk_bound_probe": ("prod", lambda q, k, v: flash_shift.flash_shift_kernel(q, k, v, "prod")),
+    "vpu_probe": ("prod", lambda q, k, v: flash_shift.flash_shift_kernel(q, k, v, "prod")),
+}
+# phase 29: the profiled request, and how often a trace torn by the
+# profiler (records missing, as admm_launches sees) is taken again
+PROFILED_S, PROFILED_STEPS, TRACE_TRIES = 40.0, 10, 3
+# the port's kernel families of profile_step.FAMILIES -> the launch counters
+# each must match in the trace
+TRACE_FAMILIES = {
+    "flash_attention (ours)": ("flash_attention",),
+    "geglu_ffn (ours)": ("geglu_ffn",),
+    "group_norm (ours, plain or masked)": ("group_norm", "group_norm_masked", "group_norm_stats",
+                                           "group_norm_apply"),
+    "layer_norm (ours)": ("layer_norm",),
+    "strided_conv_gelu (ours)": ("strided_conv_gelu",),
+}
 # what each kernel's unfused yardstick computes (phase 2's "unfused" thunks;
 # f32 with TF32 off, so at the kernel's precision)
 UNFUSED = {"geglu_ffn": "F.linear, a*gelu(g), F.linear",
@@ -2790,14 +2837,16 @@ def probe_yardsticks(cli_name, inputs):
     """The library calls timed beside a probe CLI (the port never calls
     them), on the inputs the CLI drew (its ``inputs`` record: the shape,
     and the heads packed in a row; ``_cli.inputs`` from the same seed):
-    SDPA on its attention inputs; for the int8 probe ``torch.matmul`` in
-    bf16 (batched) and ``torch._int_mm`` (every query row against one
-    head's keys: the same operations; torch has no batched int8
-    product)."""
+    SDPA on its attention inputs, and in f32 on the same draws in f32; for
+    the int8 probe ``torch.matmul`` in bf16 (batched) and ``torch._int_mm``
+    (every query row against one head's keys: the same operations; torch
+    has no batched int8 product)."""
     shape = tuple(inputs["shape"])
     if cli_name != "int8_qk_probe":
         q, k, v = _cli.inputs(np.random.default_rng(0), shape, 3, torch.bfloat16, DEV)
-        return {"SDPA": sdpa_thunk(q, k, v, inputs["heads"], None)}
+        q32, k32, v32 = _cli.inputs(np.random.default_rng(0), shape, 3, torch.float32, DEV)
+        return {"SDPA": sdpa_thunk(q, k, v, inputs["heads"], None),
+                "SDPA f32": sdpa_thunk(q32, k32, v32, inputs["heads"], None)}
     x = shift.int8_inputs(*_cli.inputs(np.random.default_rng(0), shape, 3, torch.float32, DEV))
     k0 = x.k_i8[0].t()  # column-major, as _int_mm takes it
     return {"torch.matmul bf16": lambda: torch.matmul(x.q_bf, x.k_bf.transpose(1, 2)),
@@ -2856,7 +2905,18 @@ def phase_probes(record, gpu_line, build_s):
             print(f"-- {cli_name} {label:16s} at {tuple(res['inputs']['shape'])}: max rel err vs plain {err:.3e} "
                   f"limit {limit:.0e} {'ok' if ok else 'FAIL'}")
             check(ok, f"{cli_name} {label}: max rel err vs plain {err} > limit {limit}")
-        library = {name: val["device"] for name, val in timed(probe_yardsticks(cli_name, res["inputs"])).items()}
+        thunks = probe_yardsticks(cli_name, res["inputs"])
+        if cli_name in PROBE_F32:  # the probe kernel in f32 on the f32 draws, timed in turns with SDPA f32
+            f32_stage, f32_kernel = PROBE_F32[cli_name]
+            f32_inputs = _cli.inputs(np.random.default_rng(0), tuple(res["inputs"]["shape"]), 3, torch.float32, DEV)
+            thunks[f"{f32_stage} f32"] = lambda fn=f32_kernel, x=f32_inputs: fn(*x)
+        library = {name: val["device"] for name, val in timed(thunks).items()}
+        if cli_name in PROBE_F32:
+            kernel_f32 = library.pop(f"{f32_stage} f32")
+            res["f32_vs_library"] = {"stage": f32_stage, "ms": kernel_f32, "sdpa_ms": library["SDPA f32"],
+                                     "ratio": kernel_f32 / library["SDPA f32"]}
+            print(f"-- {cli_name}: f32 {f32_stage} {kernel_f32:.4f} ms beside SDPA f32 {library['SDPA f32']:.4f} ms "
+                  f"({kernel_f32 / library['SDPA f32']:.3f}x, card alone) on {gpu_line}")
         res.update(wall_s=wall, library_ms=library)
         results[cli_name] = res
         lib = ", ".join(f"{name} {ms:.4f} ms" for name, ms in library.items())
@@ -2874,6 +2934,191 @@ def phase_probes(record, gpu_line, build_s):
           f"on {gpu_line}")
     print(json.dumps({"probes": {"device": gpu_line, "build_s": build_s, "phase_s": wall, "vs_k1": apart,
                                  "vs_plain": vs_plain, "results": results}}, default=float))
+
+
+# ------------------------------------------------------------ the CLI surface
+
+
+def split_calls():
+    """GroupNorm calls that took the Triton split so far in this process:
+    each such call fetches the split's two kernels from ``norms._kernels``,
+    whose cache counts every call."""
+    info = norms._kernels.cache_info()
+    return info.hits + info.misses
+
+
+def read_trace(path):
+    """(kernel events by family, device-busy ms by family, window ms, device
+    span ms) of a ``torch.profiler`` trace: its kernel, memcpy and memset
+    events; the window from its first event's start to its last one's end,
+    the device span from the first device event's start to the last one's
+    end (the window less the host's work before the first launch and after
+    the last)."""
+    import collections
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    counts, busy = collections.Counter(), collections.Counter()
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for e in device:
+        fam = profile_step.family(e["name"])
+        busy[fam] += float(e["dur"]) / 1e3
+        if e["cat"] == "kernel":
+            counts[fam] += 1
+
+    def span(evs):
+        return (max(float(e["ts"]) + float(e["dur"]) for e in evs) - min(float(e["ts"]) for e in evs)) / 1e3
+
+    return counts, dict(busy.most_common()), span(events), span(device) if device else 0.0
+
+
+# phase 29's requests, each in a process of its own (as a user runs the CLI):
+# the inference CLI, then, with --compilation_cache_dir, the probe and QP
+# libraries under the same root; the process's launch counters and split
+# calls go to the JSON file named first
+CLI_SCRIPT = """import json, sys
+import chip_smoke
+chip_smoke.cli.main(sys.argv[2:])
+if "--compilation_cache_dir" in sys.argv:
+    chip_smoke._build.probe_library()
+    chip_smoke.qp_native.load()
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": chip_smoke.read_launches(), "split_calls": chip_smoke.split_calls()}, f)
+"""
+
+
+def cli_process(label, args, steps, seconds):
+    """One request through the inference CLI in a fresh process (f32, CFG
+    2.0, seed 0, random weights): (launch counts, split calls, wall s)."""
+    out = os.path.join(WORK, f"{label}.json")
+    cmd = [sys.executable, "-c", CLI_SCRIPT, out, "--num_steps", str(steps), "--guidance_scale", "2.0", "--dtype",
+           "float32", "--seed", "0", "--weights_path", "", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{label}: the CLI process exited with {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    print(f"{label}: {seconds:g}-s request, {steps} steps, in its own process: {wall:.1f} s (start-up and model "
+          f"init included); GroupNorm calls on the split {got['split_calls']}")
+    return got["launches"], got["split_calls"], wall
+
+
+def profiler_sessions(sessions=3, pairs=20):
+    """Kernel records of back-to-back ``torch.profiler`` sessions in this
+    process, each over ``pairs`` elementwise adds and LayerNorm launches:
+    [(recorded, launched)] a session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w = randn((2, 600, 192), 7), randn((192,), 8)
+    out = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pairs):
+                x.add_(0.0)
+                norms.layer_norm_kernel(x, w, w)
+            torch.cuda.synchronize()
+        recorded = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer")))
+        out.append((recorded, 2 * pairs))
+    return out
+
+
+def files_under(root):
+    """{relative path: (size, mtime_ns)} of every file under ``root``."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            st = os.stat(os.path.join(dirpath, name))
+            out[os.path.relpath(os.path.join(dirpath, name), root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def phase_cli_surface(record, gpu_line):
+    frames = int(PROFILED_S * FPS)
+    print(f"\n== phase 29: --profile_dir on a {PROFILED_S:g}-s request ({frames} frames, {PROFILED_STEPS} DDIM steps, "
+          f"CFG 2.0, f32) and the same request without it, then --compilation_cache_dir twice on a 2-s request; "
+          f"each a CLI process of its own ==")
+    wav = os.path.join(WORK, f"clip{PROFILED_S:g}s.wav")
+    write_wav(wav, PROFILED_S, seed=4)
+    trace_dir = os.path.join(WORK, "trace29")
+    profiled_csv, plain_csv = os.path.join(WORK, "profiled29.csv"), os.path.join(WORK, "plain29.csv")
+    expected = expected_launches(PROFILED_STEPS)
+    torch.cuda.empty_cache()
+    for attempt in range(1, TRACE_TRIES + 1):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        launches, splits, _ = cli_process("profiled29", ["--audio_path", wav, "--output_path", profiled_csv,
+                                                         "--profile_dir", trace_dir], PROFILED_STEPS, PROFILED_S)
+        check(launches == expected, f"profiled request: launch counts {launches} != {expected}")
+        traces = sorted(os.listdir(trace_dir))
+        check(len(traces) == 1 and traces[0].startswith("rank0.") and traces[0].endswith(".pt.trace.json"),
+              f"--profile_dir wrote {traces}, expected one rank0.*.pt.trace.json")
+        path = os.path.join(trace_dir, traces[0])
+        counts, busy, window_ms, device_ms = read_trace(path)
+        want = {fam: sum(launches[name] for name in names) for fam, names in TRACE_FAMILIES.items()}
+        want["group_norm (ours, plain or masked)"] += splits  # the split launches two kernels a call
+        got = {fam: counts.get(fam, 0) for fam in TRACE_FAMILIES}
+        print(f"trace {traces[0]} (try {attempt}): {os.path.getsize(path)} bytes; kernel events by family {got}; "
+              f"from the counters {want}")
+        if got == want:
+            break
+        print(f"trace torn (try {attempt} of {TRACE_TRIES}): "
+              f"{ {fam: got[fam] - want[fam] for fam in want if got[fam] != want[fam]} } events off; taken again")
+    check(got == want, f"the trace's kernel events {got} != the counters' {want} in {TRACE_TRIES} tries")
+    busy_ms = sum(busy.values())
+    check(device_ms > 0, "the trace holds no device event")
+    print(f"trace window {window_ms:.2f} ms (the process's first request: one-time set-up included), device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / window_ms:.3f}; from the first device event to the last "
+          f"{device_ms:.2f} ms, idle share {1 - busy_ms / device_ms:.3f}; device ms by family: "
+          f"{ {fam: round(ms, 3) for fam, ms in busy.items()} } on {gpu_line}")
+    for name, n in launches.items():
+        record[name].setdefault("launches_by_request", {})[f"{PROFILED_S:g}s {PROFILED_STEPS} steps --profile_dir"] = n
+
+    launches, _, _ = cli_process("plain29", ["--audio_path", wav, "--output_path", plain_csv], PROFILED_STEPS,
+                                 PROFILED_S)
+    check(launches == expected, f"unprofiled request: launch counts {launches} != {expected}")
+    with open(profiled_csv, "rb") as f, open(plain_csv, "rb") as g:
+        same = f.read() == g.read()
+    if not same:
+        diff = float(np.abs(read_csv(profiled_csv)[1] - read_csv(plain_csv)[1]).max())
+        print(f"profiled and unprofiled CSVs differ: max |difference| {diff:.3e}")
+        check(diff <= 1e-6, f"the profiled request's CSV differs from the unprofiled one by {diff}")
+    print(f"the unprofiled request wrote {'the same CSV, byte for byte' if same else 'a CSV within 1e-6'}")
+    print(f"three more torch.profiler sessions in this process (minutes old, earlier phases' sessions before them) "
+          f"recorded {', '.join(f'{got}/{n}' for got, n in profiler_sessions())} kernels: why each request above "
+          f"ran in a process of its own")
+
+    cache = os.path.join(WORK, "cc")
+    shutil.rmtree(cache, ignore_errors=True)
+    short_wav, short_csv = os.path.join(WORK, "clip2s.wav"), os.path.join(WORK, "clip2s.csv")
+    write_wav(short_wav, 2.0, seed=5)
+    default_before = files_under(_build.BUILD_ROOT)
+    short = dict(expected_launches(2), flash_attention=0)  # 120 frames: dense self-attention
+    walls, listings = [], []
+    for run in ("first", "second"):
+        launches, splits, wall = cli_process(f"cache29_{run}", ["--audio_path", short_wav, "--output_path", short_csv,
+                                                                "--compilation_cache_dir", cache], 2, 2.0)
+        check(launches == short and splits == 1, f"--compilation_cache_dir {run} run: launch counts {launches} "
+                                                 f"(split calls {splits}) != {short} (1)")
+        walls.append(wall)
+        listings.append(files_under(cache))
+    root = _build.build_root()
+    wanted = {"the kernel library": _build.library_path().relative_to(root),
+              "the probe library": _build.probe_library_path().relative_to(root),
+              "the QP library": qp_native.library_path().relative_to(root)}
+    for what, rel in wanted.items():
+        check(str(rel) in listings[0], f"--compilation_cache_dir: {what} is not at {os.path.join(cache, rel)}")
+    triton_files = [rel for rel in listings[0] if rel.startswith("triton" + os.sep)]
+    check(triton_files, f"--compilation_cache_dir: no Triton cache under {os.path.join(cache, 'triton')}")
+    check(files_under(_build.BUILD_ROOT) == default_before,
+          f"--compilation_cache_dir runs wrote under the default root {_build.BUILD_ROOT}")
+    changed = sorted(rel for rel in listings[0].keys() | listings[1].keys() if listings[0].get(rel) != listings[1].get(rel))
+    check(not changed, f"the second --compilation_cache_dir run built or wrote {changed[:10]}")
+    print(f"--compilation_cache_dir {os.path.relpath(cache, REPO)}: {len(listings[0])} files "
+          f"({', '.join(str(rel) for rel in wanted.values())}, {len(triton_files)} under triton/); nothing new "
+          f"under the default root; first run {walls[0]:.1f} s (builds), second {walls[1]:.1f} s (built nothing, "
+          f"wrote nothing) on {gpu_line}")
 
 
 def main():
@@ -2957,6 +3202,7 @@ def main():
     phase_sequence_parallel_training(record, gpu_line)
     phase_tensor_parallel_training(record, gpu_line)
     phase_probes(record, gpu_line, probe_build["s"])
+    phase_cli_surface(record, gpu_line)
 
     print("\nall phases passed")
     print(gpu_line)

@@ -11,22 +11,32 @@ library, ``libsaid_probes.so``, with a hash of their own sources and
 headers (``csrc/probes/`` and the shared ``csrc/*.cuh``): neither
 library's hash sees the other's sources. Nothing here runs at import
 time.
+
+The root of these builds (and of the native QP library's and Triton's
+cache) is ``build_root()``: ``BUILD_ROOT`` unless ``set_build_root``
+(the CLIs' ``--compilation_cache_dir``) moved it before the first load.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _PROBES = _CSRC / "probes"
+# the default root of the builds, beside the package
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "said_tpu_torch"
+_root: Path | None = None  # set by set_build_root
+_loaded: list[Path] = []  # what this process loaded from the root
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -79,15 +89,61 @@ def _hash(files) -> str:
     return h.hexdigest()[:16]
 
 
+def build_root() -> Path:
+    """The directory the kernels build into and load from."""
+    return BUILD_ROOT if _root is None else _root
+
+
+def set_build_root(path) -> Path:
+    """Build into and load from ``path`` from now on; Triton's cache moves
+    to ``path/triton`` (over ``TRITON_CACHE_DIR``). Raises where the
+    process has already loaded a library from another root, and where
+    ``path`` cannot be made or written: no build lands elsewhere unsaid."""
+    global _root
+    new = Path(path).expanduser().resolve()
+    if _loaded and new != build_root():
+        raise RuntimeError(f"build root {new}: this process already loaded {_loaded[0]} from {build_root()}; "
+                           f"set the root before the first kernel, QP or Triton load")
+    try:
+        new.mkdir(parents=True, exist_ok=True)
+        tempfile.TemporaryFile(dir=new).close()
+    except OSError as err:
+        raise RuntimeError(f"build root {new} is not a writable directory: {err}") from err
+    _root = new
+    return new
+
+
+def temporary_root() -> Path:
+    """A fresh directory for this process's builds, removed at its exit."""
+    path = Path(tempfile.mkdtemp(prefix="said_tpu_torch_build_"))
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return path
+
+
+def triton_cache_dir() -> Path:
+    """Triton's compile cache: under a root set by ``set_build_root``;
+    else ``TRITON_CACHE_DIR`` where the environment sets it, else under
+    the default root."""
+    if _root is None and os.environ.get("TRITON_CACHE_DIR"):
+        return Path(os.environ["TRITON_CACHE_DIR"])
+    return build_root() / "triton"
+
+
+def mark_loaded(path: Path) -> None:
+    """Record a load from the root (``set_build_root`` refuses to move it
+    after one)."""
+    _loaded.append(path)
+
+
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    return BUILD_ROOT / _hash(sorted(_CSRC.glob("*.cu*"))) / "libsaid_kernels.so"
+    return build_root() / _hash(sorted(_CSRC.glob("*.cu*"))) / "libsaid_kernels.so"
 
 
 def probe_library_path() -> Path:
     """Where the probe library for the current sources lives (built or not)."""
     files = sorted(_PROBES.glob("*.cu*")) + sorted(_CSRC.glob("*.cuh"))
-    return BUILD_ROOT / "probes" / _hash(files) / "libsaid_probes.so"
+    return build_root() / "probes" / _hash(files) / "libsaid_probes.so"
 
 
 def _run_all(cmds) -> None:
@@ -120,6 +176,7 @@ def _load(out: Path, sources, signatures) -> ctypes.CDLL:
             for obj in objects:
                 obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
+    mark_loaded(out)
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: model construction, weights (SAiD's, an HF
+"""Shared CLI plumbing: the flags every CLI takes (``--compilation_cache_dir``),
+model construction, weights (SAiD's, an HF
 wav2vec2 snapshot's audio encoder, the BCVAE's), precision; the CSV I/O
 of ``said_tpu_torch.utils.blendshape`` (a header of the 32 ARKit
 blendshape names, then one row per 60 fps frame; no pandas).
@@ -8,11 +9,13 @@ from __future__ import annotations
 
 import argparse
 import os
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from said_tpu_torch import _build
 from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES
 from said_tpu_torch.models.layers import GroupNorm32, LayerNormF32
 from said_tpu_torch.models.said import SAID
@@ -44,6 +47,37 @@ def str2bool(v) -> bool:
     if s in ("false", "0", "no", "n", "off", ""):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+# --compilation_cache_dir values that mean no persistent cache (the JAX CLIs' words)
+NO_CACHE = ("none", "off", "0", "disable", "disabled")
+
+
+def configure_build_cache(cache_dir: str = "") -> Path:
+    """``--compilation_cache_dir``, the port's persistent compile cache:
+    the root the CUDA kernels, the native QP library and Triton's cache
+    build into and load from. Empty keeps the default root beside the
+    package, ``none``/``off``/``0``/``disable``/``disabled`` take a fresh
+    temporary root removed at exit, any other value is the root. Returns
+    the root. Unlike the JAX CLIs' cache, a root that cannot be used
+    raises (``_build.set_build_root``) instead of running without one."""
+    want = (cache_dir or "").strip()
+    if not want:
+        return _build.build_root()
+    if want.lower() in NO_CACHE:
+        return _build.set_build_root(_build.temporary_root())
+    return _build.set_build_root(want)
+
+
+def parse_cli_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
+    """Add the flags every CLI takes, parse ``argv`` and apply
+    ``--compilation_cache_dir`` before anything builds or loads a kernel."""
+    parser.add_argument("--compilation_cache_dir", type=str, default="",
+                        help="root the kernels build into and load from (default build/said_tpu_torch beside the "
+                             "package; 'none' builds into a temporary directory removed at exit)")
+    args = parser.parse_args(argv)
+    configure_build_cache(args.compilation_cache_dir)
+    return args
 
 
 def configure_precision(dtype: str) -> None:

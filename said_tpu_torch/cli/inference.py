@@ -21,9 +21,18 @@ of one process): the clip is padded so that N divides its frames
 (``lcm(--divisor_unet, N)``), each rank runs the encoder and the denoise
 loop on its T/N frames (``--attn_impl`` auto or flash_sp: self-attention
 over gathered K/V), and rank 0 writes the outputs. ``--attn_impl
-flash_sp`` without ``--seq_shards`` takes the normal route. The TPU-only
-``--denoise_chunk``, ``--compilation_cache_dir`` and ``--profile_dir``
-are not carried over.
+flash_sp`` without ``--seq_shards`` takes the normal route.
+
+``--profile_dir DIR`` traces the sampling run (the window the JAX CLI's
+``jax.profiler`` trace covers: after the weights and audio are loaded, up
+to the CSV) with ``torch.profiler``, host and card, into
+``DIR/rank<r>.<time>.pt.trace.json``, one a rank; the trace opens in
+Perfetto, ``chrome://tracing`` or TensorBoard's PyTorch profiler plugin.
+``--compilation_cache_dir`` (every CLI) moves the root the kernels build
+into and load from (``cli/_common.py::configure_build_cache``). The JAX
+CLI's ``--denoise_chunk`` cuts its ``lax.scan`` program into segments
+for the TPU; the port's host loop has no such program, so it is not
+carried over.
 
     python -m said_tpu_torch.cli.inference --weights_path SAiD.pth \\
         --audio_path speech.wav --output_path out.csv
@@ -33,6 +42,7 @@ are not carried over.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 
@@ -45,6 +55,7 @@ from said_tpu_torch.cli._common import (
     configure_precision,
     load_blendshape_coeffs,
     load_said_weights,
+    parse_cli_args,
     save_blendshape_coeffs,
     save_blendshape_coeffs_image,
     str2bool,
@@ -92,6 +103,10 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
                              "inpainting path (0: off; a multiple of 3)")
     parser.add_argument("--streaming_overlap", type=int, default=360,
                         help="frames of each window pinned from the one before, with --streaming_window")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="write a torch.profiler trace of the sampling run (host and card) to "
+                             "DIR/rank<r>.*.pt.trace.json; open it in Perfetto, chrome://tracing or "
+                             "TensorBoard's PyTorch profiler plugin")
 
 
 def _refuse_with_streaming(args: argparse.Namespace) -> None:
@@ -107,12 +122,34 @@ def _refuse_with_streaming(args: argparse.Namespace) -> None:
         raise SystemExit("--strength is not supported with --streaming_window")
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device: torch.device, rank: int):
+    """Trace the block with ``torch.profiler`` into ``profile_dir`` (no-op
+    when it is empty): host ops, and the card's kernels on CUDA."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+
+    def traces():  # this rank's traces (other ranks write into the same directory)
+        names = os.listdir(profile_dir) if os.path.isdir(profile_dir) else []
+        return {name for name in names if name.startswith(f"rank{rank}.") and name.endswith(".pt.trace.json")}
+
+    before = traces()
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir, worker_name=f"rank{rank}")):
+        yield
+    print(f"profiler trace → {', '.join(os.path.join(profile_dir, name) for name in sorted(traces() - before))}")
+
+
 def main(argv=None) -> np.ndarray:
     """Run the CLI; returns the (frames, 32) coefficients it wrote (every
     rank returns them; rank 0 alone writes)."""
     parser = argparse.ArgumentParser(description="Inference the lipsync using the SAiD model (PyTorch/CUDA)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
     _refuse_with_streaming(args)
     if args.seq_shards > 1 and args.attn_impl not in ("auto", "flash_sp"):
         raise SystemExit(f"--seq_shards requires the flash_sp attention partitioning rule; drop --attn_impl "
@@ -155,20 +192,21 @@ def _infer(parser: argparse.ArgumentParser, args: argparse.Namespace, ctx) -> np
     sampling = dict(num_inference_steps=args.num_steps, guidance_scale=args.guidance_scale,
                     guidance_rescale=args.guidance_rescale, eta=args.eta, solver=args.solver, fps=args.fps,
                     generator=generator)
-    if args.streaming_window > 0:
-        output = pipeline.inference_streaming(waveform_processed, window_frames=args.streaming_window,
-                                              overlap_frames=args.streaming_overlap, **sampling)
-    else:
-        output = pipeline.inference(
-            waveform_processed,
-            init_samples=init_samples,
-            mask=mask,
-            strength=args.strength,
-            save_intermediate=args.save_intermediate,
-            length_bucket=args.length_bucket,
-            seq_group=seq_group,
-            **sampling,
-        )
+    with _profiled(args.profile_dir, device, ctx.rank):
+        if args.streaming_window > 0:
+            output = pipeline.inference_streaming(waveform_processed, window_frames=args.streaming_window,
+                                                  overlap_frames=args.streaming_overlap, **sampling)
+        else:
+            output = pipeline.inference(
+                waveform_processed,
+                init_samples=init_samples,
+                mask=mask,
+                strength=args.strength,
+                save_intermediate=args.save_intermediate,
+                length_bucket=args.length_bucket,
+                seq_group=seq_group,
+                **sampling,
+            )
 
     result = output.result[0, :window_len]
     if not writes:

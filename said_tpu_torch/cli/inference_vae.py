@@ -24,6 +24,7 @@ from said_tpu_torch.cli._common import (
     configure_precision,
     load_blendshape_coeffs,
     load_vae,
+    parse_cli_args,
     save_blendshape_coeffs,
     save_blendshape_coeffs_image,
     str2bool,
@@ -41,7 +42,7 @@ def main(argv=None) -> np.ndarray:
     parser.add_argument("--use_noise", type=str2bool, default=False)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     device = torch.device(args.device)
     configure_precision("float32")

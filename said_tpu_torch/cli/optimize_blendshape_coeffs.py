@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 
+from said_tpu_torch.cli._common import parse_cli_args
 from said_tpu_torch.data.assets import asset_path
 from said_tpu_torch.data.blendvoca import (
     BLENDSHAPE_CLASSES,
@@ -54,7 +55,7 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {(person, sentence): QPSolution}."""
     parser = argparse.ArgumentParser(description="Optimize pseudo-GT blendshape coefficients (PyTorch port)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     names = (parse_list(args.blendshape_list_path, str) if os.path.exists(args.blendshape_list_path)
              else BLENDSHAPE_CLASSES)

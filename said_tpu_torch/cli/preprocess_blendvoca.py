@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from said_tpu_torch.cli._common import parse_cli_args
 from said_tpu_torch.data.assets import asset_path
 from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES, PERSON_IDS_TEST, PERSON_IDS_TRAIN, PERSON_IDS_VAL
 from said_tpu_torch.utils.blendshape import load_blendshape_deltas
@@ -43,7 +44,7 @@ def main(argv=None) -> list:
     """Run the CLI; returns the persons it processed."""
     parser = argparse.ArgumentParser(description="Preprocess the BlendVOCA blendshape meshes (PyTorch port)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
     if args.blendshapes_out_dir:
         args.neutrals_dir = os.path.join(args.blendshapes_out_dir, "templates_head")
         args.blendshapes_dir = os.path.join(args.blendshapes_out_dir, "blendshapes_head")

@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from said_tpu_torch.cli._common import str2bool
+from said_tpu_torch.cli._common import parse_cli_args, str2bool
 from said_tpu_torch.data.assets import asset_path
 from said_tpu_torch.data.blendvoca import BLENDSHAPE_CLASSES
 from said_tpu_torch.render.rasterizer import Renderer, render_blendshape_coefficients
@@ -83,7 +83,7 @@ def main(argv=None) -> dict:
     seconds."""
     parser = argparse.ArgumentParser(description="Render the blendshape coefficients into a video (PyTorch port)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     neutral, matrix = load_blendshape_setup(args.neutral_path, args.blendshapes_dir,
                                             blendshape_names(args.blendshape_list_path))

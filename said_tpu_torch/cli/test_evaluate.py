@@ -35,7 +35,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from said_tpu_torch.cli._common import configure_precision, load_vae
+from said_tpu_torch.cli._common import configure_precision, load_vae, parse_cli_args
 from said_tpu_torch.data.blendvoca import BlendVOCAEvalDataset
 from said_tpu_torch.eval.metrics import (
     beat_consistency_score,
@@ -115,7 +115,7 @@ def main(argv=None) -> Dict:
                         help="also compute the beat-consistency score (the reference implements but disables it)")
     parser.add_argument("--vertex_error", action="store_true",
                         help="also compute the max vertex error (requires --blendshape_residuals_path)")
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     device = torch.device(args.device)
     configure_precision("float32")

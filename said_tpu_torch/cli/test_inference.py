@@ -34,6 +34,7 @@ from said_tpu_torch.cli._common import (
     build_said_model,
     configure_precision,
     load_said_weights,
+    parse_cli_args,
     save_blendshape_coeffs,
 )
 from said_tpu_torch.data.blendvoca import get_data_paths, load_test_audio
@@ -76,7 +77,7 @@ def main(argv=None) -> List[str]:
     """Run the CLI; returns the CSV paths it wrote, in order."""
     parser = argparse.ArgumentParser(description="Batched SAiD inference over the test split (PyTorch/CUDA)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
     if not args.audio_dir:
         parser.error("--audio_dir is required")
     if args.mixed_batching and args.length_bucket <= 0:

@@ -20,6 +20,7 @@ import argparse
 import os
 import re
 
+from said_tpu_torch.cli._common import parse_cli_args
 from said_tpu_torch.cli.render import blendshape_names, load_blendshape_setup, render_video
 from said_tpu_torch.data.assets import asset_path
 from said_tpu_torch.data.blendvoca import PERSON_IDS_TEST, SENTENCE_IDS
@@ -48,7 +49,7 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {output path: frames}."""
     parser = argparse.ArgumentParser(description="Render all evaluation outputs (PyTorch port)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     names = blendshape_names(args.blendshape_list_path)
     renderer = Renderer()

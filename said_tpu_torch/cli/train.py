@@ -73,6 +73,7 @@ from said_tpu_torch.cli._common import (
     configure_precision,
     load_blendshape_coeffs,
     load_said_weights,
+    parse_cli_args,
     str2bool,
 )
 from said_tpu_torch.core.checkpoint import restore_train_state, save_pth, save_train_state
@@ -159,7 +160,7 @@ def _bucket_up(window_size: int, bucket: int) -> int:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Train the SAiD model using BlendVOCA dataset (PyTorch/CUDA)")
     add_arguments(parser)
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
     _refuse_unported(args)
     if args.mesh_seq > 1:
         # every padded window (train and validation buckets) splits evenly

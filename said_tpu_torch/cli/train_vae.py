@@ -29,7 +29,7 @@ import time
 
 import torch
 
-from said_tpu_torch.cli._common import configure_precision, load_blendshape_coeffs, load_vae, str2bool
+from said_tpu_torch.cli._common import configure_precision, load_blendshape_coeffs, load_vae, parse_cli_args, str2bool
 from said_tpu_torch.core.checkpoint import save_train_state
 from said_tpu_torch.core.logging import MetricsWriter
 from said_tpu_torch.data.blendvoca import BlendVOCAVAEDataset
@@ -57,7 +57,7 @@ def main(argv=None) -> VAETrainState:
     parser.add_argument("--save_period", type=int, default=200)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
-    args = parser.parse_args(argv)
+    args = parse_cli_args(parser, argv)
 
     device = torch.device(args.device)
     configure_precision("float32")

@@ -709,8 +709,10 @@ def _group_norm_apply(
 @functools.cache
 def _kernels():
     global tl
-    # Triton's compile cache goes beside the nvcc build, inside the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_ROOT / "triton"))
+    # Triton's compile cache goes beside the nvcc build (_build.build_root())
+    cache = _build.triton_cache_dir()
+    os.environ["TRITON_CACHE_DIR"] = str(cache)
+    _build.mark_loaded(cache)
     import triton
     import triton.language
 

@@ -1,7 +1,9 @@
 """ctypes bridge to the native float64 QP solver (``csrc/qp_solver.cpp``).
 
 The shared library is built at first use with ``g++ -O3 -shared -fPIC``
-into ``build/said_tpu_torch/qp-<hash>/`` beside the package (the hash
+into ``qp-<hash>/`` under the kernels' build root
+(``said_tpu_torch._build.build_root()``: ``build/said_tpu_torch/`` beside
+the package unless ``--compilation_cache_dir`` moved it; the hash
 covers the source and the flags, so an edited source rebuilds), never
 into the source tree. A failed build raises with the compiler's output.
 """
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from said_tpu_torch._build import BUILD_ROOT
+from said_tpu_torch import _build
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "qp_solver.cpp"
 _FLAGS = ("-O3", "-shared", "-fPIC")
@@ -40,7 +42,7 @@ _ARGTYPES = (
 def library_path() -> Path:
     """Where the library for the current source lives (built or not)."""
     h = hashlib.sha256(" ".join(_FLAGS).encode() + _SRC.read_bytes())
-    return BUILD_ROOT / f"qp-{h.hexdigest()[:16]}" / "libsaidqp.so"
+    return _build.build_root() / f"qp-{h.hexdigest()[:16]}" / "libsaidqp.so"
 
 
 @functools.cache
@@ -61,6 +63,7 @@ def load() -> ctypes.CDLL:
             raise RuntimeError(f"native QP solver: g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent processes each write their own file
     lib = ctypes.CDLL(str(out))
+    _build.mark_loaded(out)
     lib.said_solve_sequence_qp.restype = ctypes.c_int
     lib.said_solve_sequence_qp.argtypes = _ARGTYPES
     return lib
