@@ -1,1 +1,1 @@
-"""Train-state checkpoints and metric logs."""
+"""Train-state checkpoints, metric logs and the serving path's profiler spans."""

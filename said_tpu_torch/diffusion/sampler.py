@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from said_tpu_torch.core import trace
 from said_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     cfg_combine,
@@ -184,25 +185,28 @@ def sample(
 
     ``mask`` (1 = keep the init) applies only with ``init_samples``.
     """
-    chain = prepare_chain(
-        schedule, config, latents, init_samples, latent_scale, edit_noise, generator
-    )
-    k = len(chain.ts_used)
-    if eta_noise is not None and eta_noise.shape[0] != k:
-        raise ValueError(f"eta_noise holds {eta_noise.shape[0]} steps, the chain has {k}")
-    step = make_step(
-        schedule, denoise_fn, config, chain,
-        mask if init_samples is not None else None, cfg_folded,
-    )
-    lat = chain.latents
-    x0 = torch.zeros_like(lat) if chain.dpm is not None else None
-    interms: List[torch.Tensor] = []
-    for i in range(k):
-        if save_intermediate:
-            interms.append(lat)
-        noise_i = None
-        if config.eta > 0:
-            noise_i = eta_noise[i] if eta_noise is not None else _randn_like(lat, generator)
-        lat, x0 = step(lat, x0, i, noise_i)
-    result = finalize_chain(lat, latent_scale)
-    return result, torch.stack(interms) if save_intermediate else None
+    dev = latents.device
+    with trace.span(trace.DENOISE, dev):
+        chain = prepare_chain(
+            schedule, config, latents, init_samples, latent_scale, edit_noise, generator
+        )
+        k = len(chain.ts_used)
+        if eta_noise is not None and eta_noise.shape[0] != k:
+            raise ValueError(f"eta_noise holds {eta_noise.shape[0]} steps, the chain has {k}")
+        step = make_step(
+            schedule, denoise_fn, config, chain,
+            mask if init_samples is not None else None, cfg_folded,
+        )
+        lat = chain.latents
+        x0 = torch.zeros_like(lat) if chain.dpm is not None else None
+        interms: List[torch.Tensor] = []
+        for i in range(k):
+            with trace.span(trace.STEP, dev, i=i):
+                if save_intermediate:
+                    interms.append(lat)
+                noise_i = None
+                if config.eta > 0:
+                    noise_i = eta_noise[i] if eta_noise is not None else _randn_like(lat, generator)
+                lat, x0 = step(lat, x0, i, noise_i)
+        result = finalize_chain(lat, latent_scale)
+        return result, torch.stack(interms) if save_intermediate else None

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from said_tpu_torch.core import trace
 from said_tpu_torch.diffusion.sampler import SamplerConfig, sample
 from said_tpu_torch.diffusion.schedule import DiffusionSchedule
 from said_tpu_torch.models.layers import Dense
@@ -152,12 +153,13 @@ class SAID(nn.Module):
 def process_audio(waveform: np.ndarray) -> np.ndarray:
     """Wav2Vec2Processor normalisation: per-utterance (x − mean)/√(var + 1e-7).
     Accepts (T,) or (B, T); returns (B, T) float32."""
-    x = np.asarray(waveform, dtype=np.float32)
-    if x.ndim == 1:
-        x = x[None]
-    mean = x.mean(axis=-1, keepdims=True)
-    var = x.var(axis=-1, keepdims=True)
-    return (x - mean) / np.sqrt(var + 1e-7)
+    with trace.span(trace.PROCESS_AUDIO):
+        x = np.asarray(waveform, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None]
+        mean = x.mean(axis=-1, keepdims=True)
+        var = x.var(axis=-1, keepdims=True)
+        return (x - mean) / np.sqrt(var + 1e-7)
 
 
 def _denoise_lengths(window_real, do_cfg: bool):
@@ -205,16 +207,22 @@ class SAIDPipeline:
         model = self.model
         if (input_length is None) != (window_real is None):
             raise ValueError("bucketed mode needs both input_length and window_real")
-        audio_emb = model.get_audio_embedding(waveform, window_size, input_length, window_real,
-                                              seq_group=seq_group)
-        context = audio_emb
-        if do_cfg:
-            uncond = model.null_embedding(audio_emb.shape[0], audio_emb.shape[1])
-            context = torch.cat([uncond, audio_emb])
-        seq = None if window_real is None else _denoise_lengths(window_real, do_cfg)
-        kv_caches = build_kv_caches(model.unet, context, audio_emb.shape[1], seq_len_real=seq, seq_group=seq_group)
-        emb_table = time_embed_table(model.unet, np.arange(model.diffusion_steps))
-        return kv_caches, emb_table
+        dev = waveform.device
+        with trace.span(trace.PREPARE, dev):
+            with trace.span(trace.PREPARE_ENCODER, dev):
+                audio_emb = model.get_audio_embedding(waveform, window_size, input_length, window_real,
+                                                      seq_group=seq_group)
+            with trace.span(trace.PREPARE_KV, dev):
+                context = audio_emb
+                if do_cfg:
+                    uncond = model.null_embedding(audio_emb.shape[0], audio_emb.shape[1])
+                    context = torch.cat([uncond, audio_emb])
+                seq = None if window_real is None else _denoise_lengths(window_real, do_cfg)
+                kv_caches = build_kv_caches(model.unet, context, audio_emb.shape[1], seq_len_real=seq,
+                                            seq_group=seq_group)
+            with trace.span(trace.PREPARE_TIME_TABLE, dev):
+                emb_table = time_embed_table(model.unet, np.arange(model.diffusion_steps))
+            return kv_caches, emb_table
 
     @torch.no_grad()
     def inference(
@@ -277,115 +285,124 @@ class SAIDPipeline:
         clip). A group of one rank runs the normal route.
         """
         dev = self.device
-        wave_np = np.array(waveform_processed, np.float32)
-        if wave_np.ndim == 1:
-            wave_np = wave_np[None]
-        b, t_a = wave_np.shape
-        window_size = int(t_a / self.sampling_rate * fps)
-        c = self.model.in_channels
+        t_a = np.shape(waveform_processed)[-1]
+        with trace.span(trace.REQUEST, dev, frames=int(t_a / self.sampling_rate * fps), samples=int(t_a),
+                        steps=num_inference_steps, dtype=str(self.model.dtype).removeprefix("torch.")):
+            with trace.span(trace.UPLOAD, dev):
+                wave_np = np.array(waveform_processed, np.float32)
+                if wave_np.ndim == 1:
+                    wave_np = wave_np[None]
+                b, t_a = wave_np.shape
+                window_size = int(t_a / self.sampling_rate * fps)
+                c = self.model.in_channels
 
-        dynamic = length_bucket > 0
-        if seq_group is not None:
-            # the JAX checks (said_tpu/models/said.py:586-597), before any work
+                dynamic = length_bucket > 0
+                if seq_group is not None:
+                    # the JAX checks (said_tpu/models/said.py:586-597), before any work
+                    if dynamic:
+                        raise ValueError("seq_group is exclusive with length_bucket")
+                    if window_size % seq_group.size:
+                        raise ValueError(f"the seq axis size ({seq_group.size}) must divide the frame count "
+                                         f"({window_size}); pad the clip via fit_audio_unet(divisor=...)")
+                    if guidance_rescale > 0.0:
+                        raise ValueError("guidance_rescale is not supported with seq_group (its std spans the "
+                                         "whole clip)")
+                sp = sharded(seq_group)
+                window_real, t_a_real = window_size, t_a
+                if waveform_lengths is not None:
+                    if not dynamic:
+                        raise ValueError("waveform_lengths requires length_bucket > 0")
+                    t_a_real = np.asarray(waveform_lengths, np.int64)
+                    if t_a_real.shape != (b,) or (t_a_real > t_a).any():
+                        raise ValueError(f"waveform_lengths must be ({b},) sample counts of at most {t_a}")
+                    window_real = (t_a_real / self.sampling_rate * fps).astype(np.int64)
+                    window_size = int(window_real.max())
+                if dynamic:
+                    # the host checks what the kernels never read back: every
+                    # row keeps at least one real frame in every layer
+                    enc_real = self.model.audio_config.feature_extract_output_length(np.min(t_a_real))
+                    if np.min(window_real) < 1 or enc_real < 1:
+                        raise ValueError("every row needs at least one real frame in the encoder and the "
+                                         "window")
+                    window_pad = int(np.ceil(window_size / length_bucket) * length_bucket)
+                    t_a_pad = max(int(np.ceil(window_pad * self.sampling_rate / fps)), t_a)
+                    wave_np = np.pad(wave_np, ((0, 0), (0, t_a_pad - t_a)))
+                    window_size, t_a = window_pad, t_a_pad
+                wave = torch.as_tensor(wave_np, device=dev)
+
+                # SP: this rank's frames, and draws of the whole clip sliced to them
+                frames = frames_of(window_size, seq_group) if sp else slice(0, window_size)
+                if sp:
+                    generator = SlicedGenerator(generator, 1, frames, window_size)
+
+                def on_dev(a):
+                    if a is None:
+                        return None
+                    a = np.array(a, np.float32)
+                    if dynamic and a.shape[-2] < window_size:  # zero-pad the frame axis
+                        a = np.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, window_size - a.shape[-2]), (0, 0)])
+                    if sp:
+                        a = np.ascontiguousarray(a[..., frames, :])
+                    return torch.as_tensor(a, device=dev)
+
+                if latents is None:
+                    if init_samples is None:
+                        lat = randn((b, frames.stop - frames.start, c), generator, dev)
+                    else:
+                        lat = on_dev(init_samples)
+                else:
+                    lat = on_dev(latents)
+                init_dev, mask_dev = on_dev(init_samples), on_dev(mask)
+                eta_dev, edit_dev = on_dev(eta_noise), on_dev(edit_noise)
+
+                config = SamplerConfig(
+                    num_inference_steps=num_inference_steps,
+                    strength=strength,
+                    guidance_scale=guidance_scale,
+                    guidance_rescale=guidance_rescale,
+                    eta=eta,
+                    solver=solver,
+                )
+            kv_caches, emb_table = self.prepare(
+                wave, window_size, config.do_cfg,
+                t_a_real if dynamic else None, window_real if dynamic else None, seq_group,
+            )
+            unet = self.model.unet
+            seq = None
             if dynamic:
-                raise ValueError("seq_group is exclusive with length_bucket")
-            if window_size % seq_group.size:
-                raise ValueError(f"the seq axis size ({seq_group.size}) must divide the frame count "
-                                 f"({window_size}); pad the clip via fit_audio_unet(divisor=...)")
-            if guidance_rescale > 0.0:
-                raise ValueError("guidance_rescale is not supported with seq_group (its std spans the whole clip)")
-        sp = sharded(seq_group)
-        window_real, t_a_real = window_size, t_a
-        if waveform_lengths is not None:
-            if not dynamic:
-                raise ValueError("waveform_lengths requires length_bucket > 0")
-            t_a_real = np.asarray(waveform_lengths, np.int64)
-            if t_a_real.shape != (b,) or (t_a_real > t_a).any():
-                raise ValueError(f"waveform_lengths must be ({b},) sample counts of at most {t_a}")
-            window_real = (t_a_real / self.sampling_rate * fps).astype(np.int64)
-            window_size = int(window_real.max())
-        if dynamic:
-            # the host checks what the kernels never read back: every
-            # row keeps at least one real frame in every layer
-            enc_real = self.model.audio_config.feature_extract_output_length(np.min(t_a_real))
-            if np.min(window_real) < 1 or enc_real < 1:
-                raise ValueError("every row needs at least one real frame in the encoder and the window")
-            window_pad = int(np.ceil(window_size / length_bucket) * length_bucket)
-            t_a_pad = max(int(np.ceil(window_pad * self.sampling_rate / fps)), t_a)
-            wave_np = np.pad(wave_np, ((0, 0), (0, t_a_pad - t_a)))
-            window_size, t_a = window_pad, t_a_pad
-        wave = torch.as_tensor(wave_np, device=dev)
+                seq = _denoise_lengths(window_real, config.do_cfg)
+                # per-row lengths are uploaded once, here, for every step
+                seq = torch.as_tensor(seq, dtype=torch.int32, device=dev) if np.ndim(seq) else int(seq)
+            # the CFG fold takes one length for the batch; per-row lengths
+            # run the unfolded path (their masks are per CFG row)
+            fold = config.do_cfg and not isinstance(seq, torch.Tensor)
 
-        # SP: this rank's frames, and draws of the whole clip sliced to them
-        frames = frames_of(window_size, seq_group) if sp else slice(0, window_size)
-        if sp:
-            generator = SlicedGenerator(generator, 1, frames, window_size)
+            def denoise_fn(x, t):
+                return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=fold, seq_len_real=seq,
+                            seq_group=seq_group)
 
-        def on_dev(a):
-            if a is None:
-                return None
-            a = np.array(a, np.float32)
-            if dynamic and a.shape[-2] < window_size:  # zero-pad the frame axis
-                a = np.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, window_size - a.shape[-2]), (0, 0)])
+            result, interms = sample(
+                self.schedule,
+                denoise_fn,
+                lat,
+                config,
+                init_samples=init_dev,
+                mask=mask_dev,
+                latent_scale=self.model.latent_scale,
+                save_intermediate=save_intermediate,
+                cfg_folded=fold,
+                eta_noise=eta_dev,
+                edit_noise=edit_dev,
+                generator=generator,
+            )
             if sp:
-                a = np.ascontiguousarray(a[..., frames, :])
-            return torch.as_tensor(a, device=dev)
-
-        if latents is None:
-            if init_samples is None:
-                lat = randn((b, frames.stop - frames.start, c), generator, dev)
-            else:
-                lat = on_dev(init_samples)
-        else:
-            lat = on_dev(latents)
-
-        config = SamplerConfig(
-            num_inference_steps=num_inference_steps,
-            strength=strength,
-            guidance_scale=guidance_scale,
-            guidance_rescale=guidance_rescale,
-            eta=eta,
-            solver=solver,
-        )
-        kv_caches, emb_table = self.prepare(
-            wave, window_size, config.do_cfg,
-            t_a_real if dynamic else None, window_real if dynamic else None, seq_group,
-        )
-        unet = self.model.unet
-        seq = None
-        if dynamic:
-            seq = _denoise_lengths(window_real, config.do_cfg)
-            # per-row lengths are uploaded once, here, for every step
-            seq = torch.as_tensor(seq, dtype=torch.int32, device=dev) if np.ndim(seq) else int(seq)
-        # the CFG fold takes one length for the batch; per-row lengths
-        # run the unfolded path (their masks are per CFG row)
-        fold = config.do_cfg and not isinstance(seq, torch.Tensor)
-
-        def denoise_fn(x, t):
-            return unet(x, kv_caches=kv_caches, emb=emb_table[t], cfg_fold=fold, seq_len_real=seq,
-                        seq_group=seq_group)
-
-        result, interms = sample(
-            self.schedule,
-            denoise_fn,
-            lat,
-            config,
-            init_samples=on_dev(init_samples),
-            mask=on_dev(mask),
-            latent_scale=self.model.latent_scale,
-            save_intermediate=save_intermediate,
-            cfg_folded=fold,
-            eta_noise=on_dev(eta_noise),
-            edit_noise=on_dev(edit_noise),
-            generator=generator,
-        )
-        if sp:
-            result = gather(result, seq_group, dim=1)
-            interms = None if interms is None else gather(interms, seq_group, dim=2)
-        return SAIDInferenceOutput(
-            result=result.cpu().numpy(),
-            intermediates=None if interms is None else interms.cpu().numpy(),
-        )
+                result = gather(result, seq_group, dim=1)
+                interms = None if interms is None else gather(interms, seq_group, dim=2)
+            with trace.span(trace.DOWNLOAD, dev):
+                return SAIDInferenceOutput(
+                    result=result.cpu().numpy(),
+                    intermediates=None if interms is None else interms.cpu().numpy(),
+                )
 
     def inference_streaming(
         self,

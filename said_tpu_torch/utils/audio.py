@@ -24,6 +24,8 @@ import math
 
 import numpy as np
 
+from said_tpu_torch.core import trace
+
 
 @dataclasses.dataclass
 class FittedWaveform:
@@ -71,19 +73,20 @@ def fit_audio_unet(
     ``window_size`` is that of the ORIGINAL length (outputs are trimmed
     back to it), as in the reference.
     """
-    gcd = math.gcd(sampling_rate, fps)
-    divisor_waveform = sampling_rate // gcd * divisor_unet
+    with trace.span(trace.FIT_AUDIO):
+        gcd = math.gcd(sampling_rate, fps)
+        divisor_waveform = sampling_rate // gcd * divisor_unet
 
-    waveform_len = waveform.shape[0]
-    window_len = int(waveform_len / sampling_rate * fps)
-    waveform_len_fit = math.ceil(waveform_len / divisor_waveform) * divisor_waveform
+        waveform_len = waveform.shape[0]
+        window_len = int(waveform_len / sampling_rate * fps)
+        waveform_len_fit = math.ceil(waveform_len / divisor_waveform) * divisor_waveform
 
-    if waveform_len_fit > waveform_len:
-        tmp = np.zeros(waveform_len_fit, dtype=waveform.dtype)
-        tmp[:waveform_len] = waveform
-        waveform = tmp
+        if waveform_len_fit > waveform_len:
+            tmp = np.zeros(waveform_len_fit, dtype=waveform.dtype)
+            tmp[:waveform_len] = waveform
+            waveform = tmp
 
-    return FittedWaveform(waveform=waveform, window_size=window_len)
+        return FittedWaveform(waveform=waveform, window_size=window_len)
 
 
 def compute_audio_beat_time(waveform: np.ndarray, sampling_rate: int) -> np.ndarray:
